@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving slice on one CUDA card.
+"""Smoke run of the PyTorch port's serving and training slices on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -7,16 +8,35 @@ Drives ``multimodal_isic_tpu_torch`` end to end at the full EfficientNet-B3
 width with random weights from a seed:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the fused MBConv kernels (``csrc/fused_dwconv.cu``) with nvcc;
-3. holds each kernel against its plain PyTorch version at every geometry the
-   B3@380 serving forward gives it, in bf16 and float32;
+2. builds the kernels (``csrc/fused_dwconv.cu``, ``csrc/affine_warp.cu``),
+   one nvcc per source, started together;
+3. holds each fused MBConv kernel against its plain PyTorch version at every
+   geometry the B3@380 serving forward gives it, in bf16 and float32;
 4. serves 64 in-memory requests (rendered 450×600 samples, centroid-cropped
    to 450²) in batches of 16 through preprocess → BN-folded fusion net on the
    fused-kernel path → ``make_fusion_eval_step`` → ``evaluate_test``; checks
    the kernel launch counts, that the logits are finite and that they agree
    with the plain folded path and with the unfolded standard-BN model;
-5. times each kernel against its plain version, and preprocess + folded
-   forward on the kernel path against the plain path, with CUDA events.
+5. holds the warp kernel against its plain version and ``F.grid_sample`` at
+   bs 16, 380², on the policy's draws, its domain corners, the identity, an
+   overhang beyond 128 px, and at an odd non-square size;
+6. trains: 160 rendered requests, ``StratifiedKFold(10)`` fold 0 staged in
+   ``DeviceDataset``, the full B3 fusion net in float32 with the CLI's
+   defaults, 2 device-resident epochs of the fast policy, validation epochs,
+   early stopping, a checkpoint saved and restored into a fresh model, BN
+   folded, and the kernel-path test pass; checks finite losses, moved
+   weights and statistics, one warp launch per step, 2 + 20 fused launches
+   per test forward, and that the restored model gives the saved one's
+   logits;
+7. trains 20 steps on one fixed batch (no augmentation, the same dropout
+   masks every step) and checks that the loss falls;
+8. times the kernels against their plain versions (and the warp against
+   ``grid_sample``), the fast policy, the train step in img/s at bs 16 f32
+   and bs 128 with a bf16 backbone, and preprocess + folded forward on the
+   kernel path against the plain path, with CUDA events.
+
+Float32 on the card runs in full float32 here: TF32 is off for cuDNN and
+cuBLAS throughout (``torch.backends.cudnn.allow_tf32 = False``).
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -30,6 +50,8 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -41,9 +63,18 @@ LARGE_BATCH = 128
 SRC_HW = (450, 600)
 IMG = 380
 RADIOMICS_DIM = 780
-SOURCE = "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu"
+N_TRAIN = 160             # rendered requests of the training slice
+EPOCHS = 2
+LEARN_STEPS = 20
+SOURCE = {"dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
+          "expand_dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
+          "affine_warp_batch": "multimodal_isic_tpu_torch/csrc/affine_warp.cu"}
 REPLACES = {"dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:272",
-            "expand_dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:326"}
+            "expand_dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:326",
+            "affine_warp_batch": "multimodal_isic_tpu/ops/pallas_warp.py:190"}
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
+# and float32 CUDA-core FLOP/s
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 # Kernel vs plain: |err| <= atol + rtol * |plain|.
 #  float32: the same f32 arithmetic in another order (cuBLAS/cuDNN vs the
@@ -59,6 +90,17 @@ TOL = {torch.float32: {"y": (1e-4, 1e-4), "pool": (1e-5, 1e-4)},
 LOGIT_TOL_PLAIN = dict(rtol=5e-2, atol=5e-2)
 # Folded vs unfolded standard-BN model, as bench.py:150-151 held them.
 LOGIT_TOL_UNFOLDED = dict(rtol=0.1, atol=0.15)
+# Warp kernel vs its plain version, 0..255 scale, as
+# tests/test_pallas_warp.py:49: the coordinates are the same f32 values
+# (explicitly rounded, JAX order); only the four-tap blend rounds
+# differently.  grid_sample works in normalised coordinates (|x_n| up to ~3
+# with an overhang): their f32 rounding, times (n-1)/2 px, times up to 255
+# per px, reaches ~0.05 at 380².
+WARP_ATOL = 2e-2
+GRID_SAMPLE_ATOL = 0.1
+# Folded f32 kernel path vs the unfolded f32 model it was folded from: the
+# fold is exact in float64, then rounded to f32 once.
+LOGIT_TOL_FOLDED_F32 = dict(rtol=1e-3, atol=1e-3)
 
 
 def serving_geometries(name: str = "efficientnet-b3", size: int = IMG):
@@ -126,15 +168,14 @@ def make_requests(n: int, src_hw=SRC_HW, seed: int = SEED):
 def build_models(device, dtype=torch.bfloat16, name="efficientnet-b3",
                  radiomics_dim=RADIOMICS_DIM, seed=SEED):
     """(folded kernel-path, folded plain-path, unfolded standard-BN) fusion
-    nets with the same seeded weights, backbone in ``dtype``."""
+    nets with the same seeded weights, backbone computing in ``dtype`` (the
+    standard model on float32 master weights)."""
     from multimodal_isic_tpu_torch.models.fusion import (MultiModalFusionNet,
                                                          fold_fusion_params)
     kw = dict(backbone=name, radiomics_dim=radiomics_dim, dtype=dtype)
-    standard = MultiModalFusionNet(backbone=name, radiomics_dim=radiomics_dim)
+    standard = MultiModalFusionNet(**kw)
     seeded_init_(standard, seed)
-    std_sd = standard.state_dict()  # float32: fold before rounding to dtype
-    folded_sd = fold_fusion_params(std_sd, backbone=name)
-    standard.image_model.to(dtype)
+    folded_sd = fold_fusion_params(standard.state_dict(), backbone=name)
     kernel = MultiModalFusionNet(**kw, backbone_bn_folded=True,
                                  backbone_pallas_serving=True)
     plain = MultiModalFusionNet(**kw, backbone_bn_folded=True)
@@ -200,9 +241,34 @@ def check_kernels(device, bsz=BATCH):
     return worst
 
 
+def fused_bound_ms(geo, bsz=BATCH, esz=2):
+    """(bytes ms, operations ms) of one fused-kernel call: x, y, weights and
+    pool moved once; the expand on the bf16 tensor cores, the depthwise
+    taps as float32 FMAs on the CUDA cores."""
+    kind, h, cin, cmid, k = geo
+    px = bsz * h * h
+    we = cin * cmid if kind == "expand" else 0
+    n_bias = 2 * cmid if kind == "expand" else cmid
+    nbytes = ((px * (cin + cmid) + we + k * k * cmid) * esz
+              + n_bias * 4 + bsz * cmid * 4)
+    expand = 2 * px * cin * cmid if kind == "expand" else 0
+    taps = 2 * k * k * px * cmid
+    return nbytes / HBM_BPS * 1e3, (expand / BF16_FLOPS + taps / F32_FLOPS) * 1e3
+
+
+def warp_bound_ms(bsz, h, w, c, out_hw):
+    """(bytes ms, operations ms) of one warp call: the batch read once, the
+    output written once, the affines and flags; about 20 + 7·C float32
+    operations per output pixel (coordinates, reflection, blend)."""
+    px = bsz * out_hw[0] * out_hw[1]
+    nbytes = (bsz * h * w * c + px * c) * 4 + bsz * 25
+    return nbytes / HBM_BPS * 1e3, px * (20 + 7 * c) / F32_FLOPS * 1e3
+
+
 def time_kernels(device, bsz=BATCH, dtype=torch.bfloat16):
     """Per-geometry kernel vs plain time (ms) at the serving batch, and the
-    per-forward totals over the blocks that use each geometry."""
+    per-forward totals over the blocks that use each geometry: kernel,
+    plain, bound, and the bound's bytes and operations parts."""
     from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
     from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
     fns = {"dw": (fd.dw_silu_pool, fd.dw_silu_pool_reference),
@@ -220,16 +286,350 @@ def time_kernels(device, bsz=BATCH, dtype=torch.bfloat16):
         t_ref2 = timeit_closed(lambda: ref(*args), iters=20, repeats=5)
         ker = min(t_ker1["median"], t_ker2["median"]) * 1e3
         pln = min(t_ref1["median"], t_ref2["median"]) * 1e3
-        per_geo[geo] = (ker, pln)
+        b_bytes, b_ops = fused_bound_ms(geo, bsz)
+        per_geo[geo] = (ker, pln, max(b_bytes, b_ops), b_bytes, b_ops)
         print(f"time {kind:6s} {h}²·{cin}→{cmid} k{k} bs{bsz} "
               f"{str(dtype)[6:]}: kernel {ker:.4f} ms, plain {pln:.4f} ms "
-              f"({pln / ker:.2f}x)")
-    totals = {"dw_silu_pool": [0.0, 0.0], "expand_dw_silu_pool": [0.0, 0.0]}
+              f"({pln / ker:.2f}x); bound {max(b_bytes, b_ops):.4f} ms "
+              f"(bytes {b_bytes:.4f}, operations {b_ops:.4f}): "
+              f"{max(b_bytes, b_ops) / ker:.1%} of it")
+    totals = {"dw_silu_pool": [0.0] * 5, "expand_dw_silu_pool": [0.0] * 5}
     for geo in geos:
         name = "dw_silu_pool" if geo[0] == "dw" else "expand_dw_silu_pool"
-        totals[name][0] += per_geo[geo][0]
-        totals[name][1] += per_geo[geo][1]
+        for i, v in enumerate(per_geo[geo]):
+            totals[name][i] += v
     return totals
+
+
+def _ssr_affines(cases, h, w, device):
+    """(dx, dy, scale, angle°) cases → inverse affines [B, 6] on ``device``."""
+    from multimodal_isic_tpu_torch.data.augment import ssr_inverse
+    dx, dy, sc, an = (torch.tensor([c[i] for c in cases], dtype=torch.float32,
+                                   device=device) for i in range(4))
+    return ssr_inverse(h, w, dx, dy, sc, an)
+
+
+def check_warp(device, bsz=BATCH):
+    """Warp kernel vs its plain version and vs grid_sample: the policy's
+    draws at bs 16, 380², and its domain corners, the identity, overhangs
+    beyond 128 px and an odd non-square size → worst error vs plain."""
+    from multimodal_isic_tpu_torch.data.augment import ssr_draw, ssr_inverse
+    from multimodal_isic_tpu_torch.ops import affine_warp as aw
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    corners = [(sx * 0.05, sy * 0.05, sc, sa * 15.0) for sx in (-1, 1)
+               for sy in (-1, 1) for sc in (0.9, 1.1) for sa in (-1, 1)]
+    cases = {"policy draws": None,
+             "domain corners + identity": corners + [(0.0, 0.0, 1.0, 0.0)],
+             "overhang > 128 px": [(0.45, -0.4, 0.6, 170.0),
+                                   (-0.6, 0.3, 1.4, -95.0),
+                                   (0.35, 0.35, 0.5, 45.0)]}
+    print(f"warp kernel, 0..255 scale, max_abs_err tolerance: vs plain "
+          f"{WARP_ATOL} (same coordinates; blend rounding), vs grid_sample "
+          f"{GRID_SAMPLE_ATOL} (its normalised coordinates round)")
+    worst, failures = 0.0, []
+    for label, hw in [(k, (IMG, IMG)) for k in cases] + [("odd 97x131",
+                                                          (97, 131))]:
+        h, w = hw
+        if label == "policy draws":
+            d = ssr_draw(g, bsz)
+            inv = ssr_inverse(h, w, d["dx"], d["dy"], d["scale"], d["angle"])
+            apply = d["apply"]
+        else:
+            inv = _ssr_affines(cases.get(label, corners[:6]), h, w, device)
+            apply = None
+        imgs = torch.randint(0, 256, (inv.shape[0], h, w, 3), generator=g,
+                             device=device).float()
+        out = aw.affine_warp_batch(imgs, inv, hw, apply=apply)
+        torch.cuda.synchronize()
+        ref = aw.affine_warp_batch_reference(imgs, inv, hw, apply=apply)
+        lib = aw.affine_warp_grid_sample(imgs, inv, hw)
+        if apply is not None:
+            lib = torch.where(apply[:, None, None, None], lib, imgs)
+        e_ref = float((out - ref).abs().max())
+        e_lib = float((out - lib).abs().max())
+        ok = e_ref <= WARP_ATOL and e_lib <= GRID_SAMPLE_ATOL
+        print(f"check warp {label} {h}x{w} (B={inv.shape[0]}): max_abs_err "
+              f"vs plain {e_ref:.3e}, vs grid_sample {e_lib:.3e} "
+              f"({'ok' if ok else 'FAIL'})")
+        worst = max(worst, e_ref)
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise AssertionError(f"warp out of tolerance: {failures}")
+    return worst
+
+
+def empty_model(device, **cfg):
+    """A fusion net laid out on ``device`` without initialising it (its
+    state dict is loaded next)."""
+    from multimodal_isic_tpu_torch.models.fusion import MultiModalFusionNet
+    with torch.device("meta"):
+        model = MultiModalFusionNet(**cfg)
+    return model.to_empty(device=device)
+
+
+def train_slice(device, test_reqs):
+    """The training path at full width → (warp launches, train steps)."""
+    from multimodal_isic_tpu_torch.core import checkpoint
+    from multimodal_isic_tpu_torch.core.early_stopping import EarlyStopping
+    from multimodal_isic_tpu_torch.core.rng import RngPool
+    from multimodal_isic_tpu_torch.core.splits import StratifiedKFold
+    from multimodal_isic_tpu_torch.data.augment import (POLICIES,
+                                                        preprocess_eval_batch)
+    from multimodal_isic_tpu_torch.data.pipeline import DeviceDataset
+    from multimodal_isic_tpu_torch.models.fusion import fold_fusion_params
+    from multimodal_isic_tpu_torch.ops import affine_warp as aw
+    from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
+    from multimodal_isic_tpu_torch.train import fusion as T
+
+    t0 = time.perf_counter()
+    reqs = make_requests(N_TRAIN, seed=SEED + 1)
+    meta = {k: v for k, v in reqs.items() if k != "image"}
+    train_idx, val_idx = next(StratifiedKFold(
+        10, shuffle=True, random_state=SEED).split(reqs["image"],
+                                                   reqs["target"]))
+    sub = lambda idx: {k: v[idx] for k, v in meta.items()}
+    train_ds = DeviceDataset(reqs["image"][train_idx], sub(train_idx),
+                             device=device, with_masks=False)
+    val_ds = DeviceDataset(reqs["image"][val_idx], sub(val_idx),
+                           device=device, with_masks=False)
+    print(f"train: {N_TRAIN} rendered requests, StratifiedKFold(10) fold 0: "
+          f"{len(train_ds)} train + {len(val_ds)} val staged on the card "
+          f"({(train_ds.images.nbytes + val_ds.images.nbytes) / 1e6:.1f} MB) "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    pool = RngPool(SEED, device)
+    cfg = dict(backbone="efficientnet-b3", radiomics_dim=RADIOMICS_DIM,
+               fusion_level="intermediate", fusion_strategy="concat")
+    model = T.build_fusion(pool["init"].next(), **cfg)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = T.fusion_optimizer(model, lr=1e-3, weight_decay=1e-4)
+    epoch_fn = T.make_fusion_train_epoch(model, opt,
+                                         POLICIES["fusion_train_fast"])
+    val_fn = T.make_fusion_eval_epoch(model, (IMG, IMG))
+    val_order, val_valid = T.padded_epoch_order(len(val_ds), BATCH)
+    stopper = EarlyStopping(patience=5)
+
+    aw.affine_warp_batch.launches = 0
+    n_steps = 0
+    for epoch in range(1, EPOCHS + 1):
+        t0 = time.perf_counter()
+        order = train_ds.epoch_order(
+            BATCH, np.random.RandomState(SEED + epoch).permutation(len(train_ds)))
+        n_steps += len(order)
+        loss, correct = epoch_fn(train_ds.images, train_ds.masks,
+                                 train_ds.meta, order, pool["augment"].next(),
+                                 pool["dropout"].next())
+        vloss, vcorrect = val_fn(val_ds.images, val_ds.meta, val_order,
+                                 val_valid)
+        stop = stopper(vloss, model.state_dict())
+        print(f"epoch {epoch}: {len(order)} steps of {BATCH}, train loss "
+              f"{loss:.4f} acc {correct / order.size:.4f}; val loss "
+              f"{vloss:.4f} acc {vcorrect / len(val_ds):.4f}; patience "
+              f"{stopper.counter}; {time.perf_counter() - t0:.1f} s")
+        if not (math.isfinite(loss) and math.isfinite(vloss)):
+            raise AssertionError("non-finite loss")
+        if stop:
+            break
+    launches = aw.affine_warp_batch.launches
+    print(f"warp launches in training: {launches} over {n_steps} train steps")
+    if launches != n_steps:
+        raise AssertionError(f"{launches} warp launches != {n_steps} steps")
+
+    after = model.state_dict()
+    params = dict(model.named_parameters())
+    still = [k for k in before if torch.equal(before[k], after[k])]
+    n_par = sum(k in params for k in still)
+    n_stats = sum("running_" in k for k in still)
+    print(f"moved: {len(params) - n_par}/{len(params)} parameter tensors, "
+          f"{sum('running_' in k for k in before) - n_stats}/"
+          f"{sum('running_' in k for k in before)} BN running statistics; "
+          f"unmoved: {still[:8]}")
+    # a weight-decayed tensor can round back when its gradient is 0 (an
+    # embedding row no batch drew), so 1% of the parameter tensors may stay
+    if n_stats or n_par > 0.01 * len(params):
+        raise AssertionError(f"tensors that never moved: {still[:20]}")
+
+    # best weights → checkpoint → a fresh model → the same logits
+    best = stopper.get_best_params()
+    model.load_state_dict(best)
+    test_dev = to_device_batch(test_reqs, device)
+    test_dev["image"] = preprocess_eval_batch(test_dev["image"], (IMG, IMG))
+    test_batches = [{k: v[s:s + BATCH] for k, v in test_dev.items()}
+                    for s in range(0, len(test_dev["target"]), BATCH)]
+    step = T.make_fusion_eval_step(model)
+    saved_logits = torch.cat([step(b)[1] for b in test_batches])
+    path = checkpoint.save_checkpoint(
+        str(Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"),
+        best, metadata={"best_val_loss": stopper.best_loss})
+    restored = checkpoint.restore_checkpoint(path, device=device)
+    fresh = empty_model(device, **cfg)
+    fresh.load_state_dict(restored)
+    fresh_logits = torch.cat([T.make_fusion_eval_step(fresh)(b)[1]
+                              for b in test_batches])
+    err = float((fresh_logits - saved_logits).abs().max())
+    print(f"checkpoint {Path(path).name}: restored logits vs saved model's: "
+          f"max_abs_err {err:.3e} (must be 0)")
+    if not torch.equal(fresh_logits, saved_logits):
+        raise AssertionError("restored model's logits differ")
+
+    # fold BN, the kernel-path test pass (float32, as the CLI folds)
+    folded = empty_model(device, **cfg, backbone_bn_folded=True,
+                         backbone_pallas_serving=True)
+    folded.load_state_dict(fold_fusion_params(restored,
+                                              backbone="efficientnet-b3"))
+    fd.dw_silu_pool.launches = fd.expand_dw_silu_pool.launches = 0
+    acc, _ = T.evaluate_test(T.make_fusion_eval_step(folded), test_batches)
+    fused = (fd.dw_silu_pool.launches, fd.expand_dw_silu_pool.launches)
+    n_fw = len(test_batches)
+    print(f"test pass, folded f32 kernel path: {len(test_dev['target'])} "
+          f"requests, accuracy {acc:.5f}; fused launches {fused} over "
+          f"{n_fw} forwards")
+    if fused != (2 * n_fw, 20 * n_fw):
+        raise AssertionError(f"fused launches {fused} != (2, 20) x {n_fw}")
+    folded_logits = torch.cat([T.make_fusion_eval_step(folded)(b)[1]
+                               for b in test_batches])
+    err = float((folded_logits - saved_logits).abs().max())
+    print(f"folded kernel path vs unfolded: max_abs_err {err:.3e} "
+          f"(tolerance {LOGIT_TOL_FOLDED_F32})")
+    torch.testing.assert_close(folded_logits, saved_logits,
+                               **LOGIT_TOL_FOLDED_F32)
+    return launches, train_ds
+
+
+def learning_evidence(device, train_ds):
+    """20 SGD steps on one fixed batch of 16, no augmentation, the same
+    dropout masks every step: the loss must fall."""
+    from multimodal_isic_tpu_torch.core.rng import generator
+    from multimodal_isic_tpu_torch.data.augment import preprocess_eval_batch
+    from multimodal_isic_tpu_torch.train import fusion as T
+    model = T.build_fusion(generator(SEED + 3, device),
+                           backbone="efficientnet-b3",
+                           radiomics_dim=RADIOMICS_DIM,
+                           fusion_strategy="concat")
+    step = T.make_fusion_train_step(model, T.fusion_optimizer(model))
+    batch = {k: v[:BATCH] for k, v in train_ds.meta.items()}
+    batch["image"] = preprocess_eval_batch(train_ds.images[:BATCH], (IMG, IMG))
+    losses = [float(step(batch, generator(SEED + 4, device))[0])
+              for _ in range(LEARN_STEPS)]
+    print(f"fixed batch of {BATCH}, {LEARN_STEPS} steps, loss per step: "
+          + " ".join(f"{v:.4f}" for v in losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall on a fixed batch")
+    return losses
+
+
+KERNEL_FAMILIES = (  # (label, substrings of the kernel name), first match
+    ("warp kernel", ("affine_warp",)),
+    ("fused MBConv kernels", ("mbconv",)),
+    ("convolutions and GEMMs", ("conv", "gemm", "xmma", "cutlass", "sm90",
+                                "wgrad", "dgrad")),
+    ("batch norm", ("batch_norm", "bn_")),
+    ("reductions", ("reduce",)),
+    ("gathers, copies, pads", ("index", "gather", "copy", "cat", "pad",
+                               "flip")),
+    ("elementwise", ("elementwise", "vectorized")),
+)
+
+
+def profile_steps(fn, label, steps=3):
+    """torch.profiler over ``steps`` calls after a warm-up: the device's
+    busy share of the window (kernel time summed on the one stream over the
+    host-clock window) and the kernel time by family, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    fams = {}
+    for e in kernels:
+        name = e.name.lower()
+        fam = next((lab for lab, keys in KERNEL_FAMILIES
+                    if any(k in name for k in keys)), "other")
+        fams[fam] = fams.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
+    print(f"profile {label}: per call wall {wall / steps:.2f} ms, device "
+          f"kernels {busy / steps:.2f} ms ({len(kernels) / steps:.0f} "
+          f"launches), busy share {busy / wall:.3f}; by family: "
+          + ", ".join(f"{k} {v / steps:.2f} ms"
+                      for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
+
+
+def time_training(device, train_ds):
+    """Warp kernel vs plain vs grid_sample at bs 16 and 128, the fast policy
+    per batch, and the train step in img/s: bs 16 float32, bs 128 with a
+    bf16 backbone."""
+    from multimodal_isic_tpu_torch.core.rng import generator
+    from multimodal_isic_tpu_torch.data.augment import (make_fusion_train_fast,
+                                                        resize_bilinear_mxu,
+                                                        ssr_draw, ssr_inverse)
+    from multimodal_isic_tpu_torch.ops import affine_warp as aw
+    from multimodal_isic_tpu_torch.train import fusion as T
+    from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
+
+    g = generator(SEED + 5, device)
+    n = len(train_ds)
+    warp = {}
+    for bsz in (BATCH, LARGE_BATCH):
+        idx = torch.arange(bsz, device=device) % n
+        imgs = resize_bilinear_mxu(train_ds.images[idx], (IMG, IMG)).contiguous()
+        d = ssr_draw(g, bsz, p=1.0)
+        inv = ssr_inverse(IMG, IMG, d["dx"], d["dy"], d["scale"], d["angle"])
+        fns = {"kernel": lambda: aw.affine_warp_batch(imgs, inv, (IMG, IMG)),
+               "plain": lambda: aw.affine_warp_batch_reference(imgs, inv,
+                                                               (IMG, IMG)),
+               "grid_sample": lambda: aw.affine_warp_grid_sample(imgs, inv,
+                                                                 (IMG, IMG))}
+        t = {k: [] for k in fns}
+        for name in ("plain", "grid_sample", "kernel", "kernel", "grid_sample",
+                     "plain"):
+            t[name].append(timeit_closed(fns[name], iters=20, repeats=5))
+        med = {k: min(r["median"] for r in v) * 1e3 for k, v in t.items()}
+        b_bytes, b_ops = warp_bound_ms(bsz, IMG, IMG, 3, (IMG, IMG))
+        warp[bsz] = (med, max(b_bytes, b_ops), b_bytes, b_ops)
+        print(f"time warp bs{bsz} {IMG}² C3 f32: kernel {med['kernel']:.4f} "
+              f"ms, plain {med['plain']:.4f} ms, grid_sample "
+              f"{med['grid_sample']:.4f} ms; bound {max(b_bytes, b_ops):.4f} "
+              f"ms (bytes {b_bytes:.4f}, operations {b_ops:.4f}): "
+              f"{max(b_bytes, b_ops) / med['kernel']:.1%} of it")
+
+    policy = make_fusion_train_fast((IMG, IMG))
+    for bsz, dtype in ((BATCH, torch.float32), (LARGE_BATCH, torch.bfloat16)):
+        idx = torch.arange(bsz, device=device) % n
+        images = train_ds.images[idx]
+        batch = {k: v[idx] for k, v in train_ds.meta.items()}
+        t_pol = timeit_closed(lambda: policy(images, None, g), iters=10,
+                              repeats=5)
+        model = T.build_fusion(generator(SEED + 6, device),
+                               backbone="efficientnet-b3",
+                               radiomics_dim=RADIOMICS_DIM,
+                               fusion_strategy="concat", dtype=dtype)
+        step = T.make_fusion_train_step(model, T.fusion_optimizer(model))
+
+        def train_step():
+            batch["image"] = policy(images, None, g)[0]
+            return step(batch, g)
+
+        torch.cuda.reset_peak_memory_stats()
+        iters = 5 if bsz == BATCH else 2
+        t_step = timeit_closed(train_step, iters=iters, repeats=3, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"train step bs{bsz} ({str(dtype)[6:]} backbone, fast augment "
+              f"+ forward + backward + SGD): {bsz / t_step['median']:.1f} "
+              f"img/s (median, best {bsz / t_step['best']:.1f}); fast policy "
+              f"alone {t_pol['median'] * 1e3:.3f} ms per batch (best "
+              f"{t_pol['best'] * 1e3:.3f}); peak device memory {peak:.2f} GiB")
+        profile_steps(train_step, f"train step bs{bsz} {str(dtype)[6:]}")
+        del model, step
+        torch.cuda.empty_cache()
+    return warp
 
 
 def to_device_batch(reqs, device, sl=slice(None)):
@@ -244,12 +644,14 @@ def main() -> int:
         return 1
     from multimodal_isic_tpu_torch.data.augment import preprocess_eval_batch
     from multimodal_isic_tpu_torch.ops import _build
+    from multimodal_isic_tpu_torch.ops import affine_warp as aw
     from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
     from multimodal_isic_tpu_torch.train.fusion import (evaluate_test,
                                                         make_fusion_eval_step)
     from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
 
-    # plain f32 versions in full f32, as the kernels compute
+    # float32 in full float32 (no TF32), for the plain versions, the
+    # comparisons and the float32 training
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -261,19 +663,21 @@ def main() -> int:
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
+          f"device {torch.cuda.get_device_name(0)}; TF32 off")
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    fd._lib()
-    lib = _build.library_path("fused_dwconv")
-    print(f"build: {lib.relative_to(lib.parents[2])} "
-          f"in {time.perf_counter() - t0:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "bytes stack" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
+    with ThreadPoolExecutor() as pool:
+        list(pool.map(lambda load: load(), (fd._lib, aw._lib)))
+    print(f"build: both kernel libraries in {time.perf_counter() - t0:.1f} s")
+    for name in ("fused_dwconv", "affine_warp"):
+        lib = _build.library_path(name)
+        print(f"  {lib.relative_to(lib.parents[2])}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "bytes stack" in line or "Compiling" in line:
+                print("  ptxas:", line.strip())
 
-    # 3. kernel vs plain at every slice geometry
+    # 3. fused kernels vs plain at every serving geometry
     worst_err = check_kernels(device)
 
     # 4. the serving slice end to end
@@ -349,7 +753,18 @@ def main() -> int:
               f"(|features| max {float(feats[other].abs().max()):.3f})")
         torch.testing.assert_close(feats["kernel"], feats[other], **tol)
 
-    # 5. times
+    # 5. the warp kernel
+    worst_err["affine_warp_batch"] = check_warp(device)
+
+    # 6. the training slice end to end
+    warp_launches, train_ds = train_slice(device, reqs)
+    launches["affine_warp_batch"] = warp_launches
+
+    # 7. learning evidence on a fixed batch
+    learning_evidence(device, train_ds)
+
+    # 8. times
+    warp_times = time_training(device, train_ds)
     totals = time_kernels(device)
     for bsz in (BATCH, LARGE_BATCH):
         reps = -(-bsz // N_REQUESTS)
@@ -386,12 +801,20 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB; wall {time.perf_counter() - t_start:.1f} s")
 
+    med, bound, b_bytes, b_ops = warp_times[BATCH]
+    totals["affine_warp_batch"] = [med["kernel"], med["plain"], bound, b_bytes,
+                                   b_ops]
+    library = {"affine_warp_batch": med["grid_sample"]}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": worst_err[name], "ms": totals[name][0],
-         "plain_ms": totals[name][1]}
-        for name in ("expand_dw_silu_pool", "dw_silu_pool")]}))
+         "plain_ms": totals[name][1], "bound_ms": totals[name][2],
+         "bound_by": ("bytes" if totals[name][3] >= totals[name][4]
+                      else "operations"),
+         "library_ms": library.get(name)}
+        for name in ("expand_dw_silu_pool", "dw_silu_pool",
+                     "affine_warp_batch")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,24 +1,52 @@
-"""Eval/serving preprocessing on the device: bilinear resize + ImageNet
-normalize.
+"""Device-side preprocessing and the fusion train-time augmentations.
 
-Counterpart of ``multimodal_isic_tpu/data/augment.py:22-116``.  The resize is
-the same separable half-pixel-centre bilinear (cv2.INTER_LINEAR, no
-antialias) written as two dense banded matmuls, ``A_h @ X @ A_wᵀ``, which
-cuBLAS runs on the tensor cores in bf16 for the serving path.  The
-train-time augmentations come with the training port.
+Counterpart of ``multimodal_isic_tpu/data/augment.py`` (:22-116 eval
+preprocess, :132-283 geometric, :331-423 colour, :428-554 fusion policies;
+the MAE policies come with ConvMAE).
+
+Eval preprocess: the separable half-pixel-centre bilinear resize
+(cv2.INTER_LINEAR, no antialias) written as two dense banded matmuls,
+``A_h @ X @ A_wᵀ``, which cuBLAS runs on the tensor cores in bf16 for the
+serving path; in float32 it is the JAX ``resize_bilinear`` too, which the
+per-image policy uses.
+
+Augmentations work on whole batches [B, H, W, C] (float32, 0..255) and are
+split in two, because ``jax.random`` and ``torch.Generator`` give different
+numbers from one seed:
+
+- a *draw* function (generator, batch size) → a dict of tensors on the
+  generator's device: flip flags and ``rot_k``; SSR ``apply``, ``dx``,
+  ``dy``, ``scale``, ``angle``; jitter ``apply``, factors and ``perm``; noise
+  ``apply``, ``var`` and the standard-normal ``noise`` field;
+- an *apply* function (images, draws) that is deterministic, so the tests
+  feed it the JAX package's own draws.
+
+Per-image choices (a flip, a rotation, the order of the jitter adjustments)
+become per-image selects over the batch: no host round trip, no sync.
+Nothing here reads torch's global RNG.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+# the JAX module's _mirror_coord and _warp_taps live in ops/affine_warp.py
+# (mirror_coord, warp_taps), beside the kernel whose plain version they are
+from ..ops.affine_warp import (affine_coords, affine_warp_batch,
+                               affine_warp_batch_reference, warp_taps)
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+LUMA = (0.299, 0.587, 0.114)
 
+Draws = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------- basic ops
 
 @functools.lru_cache(maxsize=32)
 def _bilinear_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -66,6 +94,22 @@ def resize_bilinear_mxu(imgs: torch.Tensor, out_hw: Tuple[int, int],
     return torch.einsum("ow,bhwc->bhoc", ww, t)    # contract W
 
 
+@functools.lru_cache(maxsize=32)
+def _nearest_index(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """``jax.image.resize(method='nearest')`` source indices, computed in
+    float32 as JAX computes them."""
+    src = (np.arange(n_out, dtype=np.float32) + 0.5) * n_in / n_out
+    return torch.from_numpy(np.floor(src.astype(np.float32)).astype(np.int64)
+                            ).to(device)
+
+
+def resize_nearest(masks: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of a batch of masks [B, H, W] → [B, h, w]."""
+    yi = _nearest_index(masks.shape[1], out_hw[0], masks.device)
+    xi = _nearest_index(masks.shape[2], out_hw[1], masks.device)
+    return masks.index_select(1, yi).index_select(2, xi)
+
+
 def normalize_imagenet(img: torch.Tensor,
                        mean: Tuple[float, ...] = IMAGENET_MEAN,
                        std: Tuple[float, ...] = IMAGENET_STD) -> torch.Tensor:
@@ -82,3 +126,296 @@ def preprocess_eval_batch(imgs_u8: torch.Tensor, out_hw: Tuple[int, int],
     ``main.py:88-94``)."""
     return normalize_imagenet(resize_bilinear_mxu(imgs_u8, out_hw, dtype)
                               ).contiguous()
+
+
+def _per_image(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """[B] → [B, 1, ..., 1] broadcasting against ``like``."""
+    return t.view(-1, *[1] * (like.dim() - 1))
+
+
+def _uniform(gen: torch.Generator, n: int, bsz: int) -> torch.Tensor:
+    return torch.rand(n, bsz, generator=gen, device=gen.device)
+
+
+# ----------------------------------------------------------- geometric augs
+
+def flips_rot90_draw(gen: torch.Generator, bsz: int, p: float = 0.5) -> Draws:
+    """HorizontalFlip(p), VerticalFlip(p), RandomRotate90(p) draws."""
+    u = _uniform(gen, 3, bsz)
+    k = torch.randint(0, 4, (bsz,), generator=gen, device=gen.device)
+    return {"hflip": u[0] < p, "vflip": u[1] < p,
+            "rot_k": torch.where(u[2] < p, k, torch.zeros_like(k))}
+
+
+def random_flips_rot90(imgs: torch.Tensor, masks: Optional[torch.Tensor],
+                       draws: Draws):
+    """Apply the flips and the rotation by ``rot_k`` quarter turns jointly to
+    images [B, H, W, C] and masks [B, H, W] (the reference's shared
+    transform), in the JAX order: h-flip, v-flip, rotate.  A rotation needs
+    square images, as in JAX (``lax.switch`` branches share one shape).
+    The outputs are contiguous (the selects over transposed views are
+    not)."""
+    def apply(x):
+        sel = lambda flag, a, b: torch.where(_per_image(flag, x), a, b)
+        x = sel(draws["hflip"], x.flip(2), x)
+        x = sel(draws["vflip"], x.flip(1), x)
+        k = draws["rot_k"]
+        t = x.transpose(1, 2)
+        out = sel(k == 1, t.flip(1), x)
+        out = sel(k == 2, x.flip((1, 2)), out)
+        return sel(k == 3, t.flip(2), out).contiguous()
+
+    return apply(imgs), (None if masks is None else apply(masks))
+
+
+def ssr_draw(gen: torch.Generator, bsz: int, shift_limit: float = 0.05,
+             scale_limit: float = 0.1, rotate_limit: float = 15.0,
+             p: float = 0.5) -> Draws:
+    """ShiftScaleRotate's draws (``_ssr_draw``): apply flag, shifts as a
+    fraction of the size, scale and angle in degrees."""
+    u = _uniform(gen, 5, bsz)
+    span = lambda v, lim: (2.0 * v - 1.0) * lim
+    return {"apply": u[0] < p, "dx": span(u[1], shift_limit),
+            "dy": span(u[2], shift_limit), "scale": 1.0 + span(u[3], scale_limit),
+            "angle": span(u[4], rotate_limit)}
+
+
+def ssr_inverse(h: int, w: int, dx, dy, scale, angle) -> torch.Tensor:
+    """Inverse affines [B, 6] (dst pixel → src coordinate) of cv2-convention
+    shift/scale/rotate about the image centre, in float32 as the JAX
+    ``_ssr_inverse``: rows (i11, i12, i13, i21, i22, i23) with
+    sx = i11·x + i12·y + i13, sy = i21·x + i22·y + i23."""
+    theta = torch.deg2rad(angle.float())
+    alpha = scale.float() * torch.cos(theta)
+    beta = scale.float() * torch.sin(theta)
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    a13 = (1 - alpha) * cx - beta * cy + dx.float() * w
+    a23 = beta * cx + (1 - alpha) * cy + dy.float() * h
+    det = alpha * alpha + beta * beta
+    i11, i12 = alpha / det, -beta / det
+    i21, i22 = beta / det, alpha / det
+    i13 = -(i11 * a13 + i12 * a23)
+    i23 = -(i21 * a13 + i22 * a23)
+    return torch.stack([i11, i12, i13, i21, i22, i23], dim=1)
+
+
+def shift_scale_rotate(imgs: torch.Tensor, masks: Optional[torch.Tensor],
+                       draws: Draws):
+    """Affine warp with cv2 conventions, REFLECT_101 borders, bilinear for
+    the images and nearest for the masks (albumentations ShiftScaleRotate
+    defaults), through the plain gather; images not drawn pass unchanged."""
+    h, w = imgs.shape[1:3]
+    inv = ssr_inverse(h, w, draws["dx"], draws["dy"], draws["scale"],
+                      draws["angle"])
+    imgs = affine_warp_batch_reference(imgs, inv, (h, w), draws["apply"])
+    if masks is not None:
+        src_y, src_x = affine_coords(inv, (h, w))
+        mf = masks.float()
+        warped = warp_taps(mf, src_y, src_x, 0)
+        masks = torch.where(_per_image(draws["apply"], mf), warped, mf
+                            ).to(masks.dtype)
+    return imgs, masks
+
+
+# ------------------------------------------------------------- colour augs
+
+def _rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    v = maxc
+    delta = maxc - minc
+    s = torch.where(maxc > 0, delta / maxc.clamp(min=1e-12),
+                    torch.zeros_like(maxc))
+    safe = delta.clamp(min=1e-12)
+    rc, gc, bc = (maxc - r) / safe, (maxc - g) / safe, (maxc - b) / safe
+    h = torch.where(r == maxc, bc - gc,
+                    torch.where(g == maxc, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(delta > 0, torch.remainder(h / 6.0, 1.0),
+                    torch.zeros_like(h))
+    return torch.stack([h, s, v], dim=-1)
+
+
+def _hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    i = torch.remainder(i.long(), 6)
+
+    def pick(opts):
+        out = opts[5]
+        for idx in range(4, -1, -1):
+            out = torch.where(i == idx, opts[idx], out)
+        return out
+
+    return torch.stack([pick([v, q, p, p, t, v]), pick([t, v, v, q, p, p]),
+                        pick([p, p, t, v, v, q])], dim=-1)
+
+
+def color_jitter_draw(gen: torch.Generator, bsz: int, brightness: float = 0.2,
+                      contrast: float = 0.2, saturation: float = 0.2,
+                      hue: float = 0.1, p: float = 0.5) -> Draws:
+    """ColorJitter's draws: apply flag, the four factors, and ``perm``
+    [B, 4], a uniform permutation of the adjustments (brightness 0,
+    contrast 1, saturation 2, hue 3) per image."""
+    u = _uniform(gen, 5, bsz)
+    perm = torch.rand(bsz, 4, generator=gen, device=gen.device).argsort(dim=1)
+    return {"apply": u[0] < p,
+            "brightness": 1 - brightness + 2 * brightness * u[1],
+            "contrast": 1 - contrast + 2 * contrast * u[2],
+            "saturation": 1 - saturation + 2 * saturation * u[3],
+            "hue": -hue + 2 * hue * u[4], "perm": perm}
+
+
+def color_jitter(imgs: torch.Tensor, draws: Draws) -> torch.Tensor:
+    """torchvision-order ColorJitter on [B, H, W, 3]: the four adjustments
+    run in each image's own order ``perm``.  Step i computes the four
+    adjustments of the batch and selects per image the one ``perm[:, i]``
+    names, which is the JAX ``lax.switch`` order exactly."""
+    lum = torch.tensor(LUMA, dtype=imgs.dtype, device=imgs.device)
+    f = {k: _per_image(draws[k].to(imgs.dtype), imgs)
+         for k in ("brightness", "contrast", "saturation")}
+    fh = draws["hue"].to(imgs.dtype).view(-1, 1, 1)
+
+    def adj_brightness(x):
+        return x * f["brightness"]
+
+    def adj_contrast(x):
+        mean = (x.clamp(0, 255) @ lum).mean(dim=(1, 2)).view(-1, 1, 1, 1)
+        return mean + f["contrast"] * (x - mean)
+
+    def adj_saturation(x):
+        gray = (x.clamp(0, 255) @ lum)[..., None]
+        return gray + f["saturation"] * (x - gray)
+
+    def adj_hue(x):
+        hsv = _rgb_to_hsv(x.clamp(0, 255) / 255.0)
+        shifted = torch.stack([torch.remainder(hsv[..., 0] + fh, 1.0),
+                               hsv[..., 1], hsv[..., 2]], dim=-1)
+        return _hsv_to_rgb(shifted) * 255.0
+
+    adjust = (adj_brightness, adj_contrast, adj_saturation, adj_hue)
+    out = imgs
+    for step in range(4):
+        which = draws["perm"][:, step]
+        cands = [fn(out) for fn in adjust]
+        new = cands[3]
+        for j in (2, 1, 0):
+            new = torch.where(_per_image(which == j, out), cands[j], new)
+        out = new
+    out = out.clamp(0.0, 255.0)
+    return torch.where(_per_image(draws["apply"], imgs), out, imgs)
+
+
+def gauss_noise_draw(gen: torch.Generator, shape: Tuple[int, ...],
+                     var_limit: Tuple[float, float] = (10.0, 50.0),
+                     p: float = 0.3) -> Draws:
+    """GaussNoise's draws for images of ``shape`` [B, H, W, C]: apply flag,
+    variance, and the standard-normal field."""
+    u = _uniform(gen, 2, shape[0])
+    noise = torch.randn(shape, generator=gen, device=gen.device)
+    return {"apply": u[0] < p,
+            "var": var_limit[0] + (var_limit[1] - var_limit[0]) * u[1],
+            "noise": noise}
+
+
+def gauss_noise(imgs: torch.Tensor, draws: Draws) -> torch.Tensor:
+    """Additive gaussian noise on the 0..255 scale (albumentations
+    GaussNoise)."""
+    noise = draws["noise"] * _per_image(torch.sqrt(draws["var"]), imgs)
+    noisy = (imgs + noise).clamp(0.0, 255.0)
+    return torch.where(_per_image(draws["apply"], imgs), noisy, imgs)
+
+
+# ------------------------------------------------------------- policies
+
+def fusion_train_draws(gen: torch.Generator, bsz: int,
+                       out_hw: Tuple[int, int] = (380, 380),
+                       channels: int = 3) -> Dict[str, Draws]:
+    """Every draw of one batch of the fusion train policy, from ``gen`` in
+    the policy's order: flips, SSR, jitter, noise."""
+    return {"flips": flips_rot90_draw(gen, bsz),
+            "ssr": ssr_draw(gen, bsz),
+            "jitter": color_jitter_draw(gen, bsz),
+            "noise": gauss_noise_draw(gen, (bsz, *out_hw, channels))}
+
+
+def _train_transform(images, masks, draws, out_hw, fast: bool):
+    imgs = resize_bilinear_mxu(images, out_hw)
+    if not fast:
+        masks = resize_nearest(masks.float(), out_hw)
+    imgs, warp_masks = random_flips_rot90(imgs, None if fast else masks,
+                                          draws["flips"])
+    if fast:
+        ssr = draws["ssr"]
+        inv = ssr_inverse(*out_hw, ssr["dx"], ssr["dy"], ssr["scale"],
+                          ssr["angle"])
+        imgs = affine_warp_batch(imgs, inv, out_hw, apply=ssr["apply"])
+    else:
+        imgs, masks = shift_scale_rotate(imgs, warp_masks, draws["ssr"])
+    imgs = color_jitter(imgs, draws["jitter"])
+    imgs = gauss_noise(imgs, draws["noise"])
+    return normalize_imagenet(imgs), masks
+
+
+def fusion_train_transform(images: torch.Tensor, masks: torch.Tensor,
+                           draws: Dict[str, Draws],
+                           out_hw: Tuple[int, int] = (380, 380)):
+    """Reference fusion train policy (``main.py:76-87``) on a batch:
+    Resize(380) → flips/rot90 → ShiftScaleRotate → ColorJitter →
+    GaussNoise → Normalize, images and masks (float32) transformed together,
+    the warp through the plain gather."""
+    return _train_transform(images, masks, draws, out_hw, fast=False)
+
+
+def fusion_train_fast_transform(images: torch.Tensor,
+                                masks: Optional[torch.Tensor],
+                                draws: Dict[str, Draws],
+                                out_hw: Tuple[int, int] = (380, 380)):
+    """The fast fusion train policy on a batch: the same augmentations and
+    draws as :func:`fusion_train_transform`, the SSR warp through the warp
+    kernel (one launch per batch), masks passed through untransformed (the
+    fusion step never reads them)."""
+    return _train_transform(images, masks, draws, out_hw, fast=True)
+
+
+def fusion_train_batch(images: torch.Tensor, masks: torch.Tensor,
+                       gen: torch.Generator,
+                       out_hw: Tuple[int, int] = (380, 380)):
+    """uint8 images [B, H, W, 3] and masks [B, H, W] → the faithful policy,
+    its draws taken from ``gen``."""
+    draws = fusion_train_draws(gen, images.shape[0], out_hw, images.shape[-1])
+    return fusion_train_transform(images, masks, draws, out_hw)
+
+
+def fusion_eval_batch(images: torch.Tensor, masks: torch.Tensor,
+                      out_hw: Tuple[int, int] = (380, 380)):
+    """Reference fusion eval policy (``main.py:89-94``)."""
+    return (preprocess_eval_batch(images, out_hw),
+            resize_nearest(masks.float(), out_hw))
+
+
+def make_fusion_train_fast(out_hw: Tuple[int, int] = (380, 380)
+                           ) -> Callable:
+    """(images, masks, gen) → the fast policy, its draws from ``gen``.
+
+    On the card the warp is the hand-written kernel.  Its REFLECT_101 is
+    computed in place, so unlike the JAX policy there is no pad budget and
+    the fast policy equals the faithful one at every size.
+    """
+    def batched(images, masks, gen):
+        draws = fusion_train_draws(gen, images.shape[0], out_hw,
+                                   images.shape[-1])
+        return fusion_train_fast_transform(images, masks, draws, out_hw)
+
+    return batched
+
+
+POLICIES = {
+    "fusion_train": fusion_train_batch,
+    "fusion_eval": fusion_eval_batch,
+    "fusion_train_fast": make_fusion_train_fast(),
+}

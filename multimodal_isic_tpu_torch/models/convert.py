@@ -4,7 +4,9 @@ Reads either the nested flax dicts (``params``, ``batch_stats``) as numpy
 arrays, or a checkpoint directory written by the JAX package's
 ``core/checkpoint.py::save_checkpoint`` (``arrays.npz`` plus
 ``manifest.json``, whose ``paths`` are "/"-joined, checkpoint.py:53-76),
-with numpy and json alone.  Returns a state dict for
+with numpy and json alone.  A checkpoint the port wrote in the same layout
+(``core/checkpoint.py``, manifest ``treedef`` "state_dict") is read as the
+state dict it holds.  Returns a state dict for
 ``models.efficientnet.EfficientNet`` or ``models.fusion.MultiModalFusionNet``
 (the port names its submodules after the flax tree; ``block_<i>`` becomes
 ``blocks.<i>``).
@@ -28,6 +30,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..core import checkpoint
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -89,7 +93,10 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
 
 def state_dict_from_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """A checkpoint of ``{"params", "batch_stats"}`` (or a TrainState, or a
-    bare params tree) → torch state dict."""
+    bare params tree), or one the port wrote → torch state dict."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        if json.load(f).get("treedef") == checkpoint.TREEDEF:
+            return checkpoint.restore_checkpoint(path)
     tree = read_checkpoint(path)
     if "params" not in tree:
         return flax_to_state_dict(tree)

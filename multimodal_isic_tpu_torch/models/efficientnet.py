@@ -1,22 +1,35 @@
-"""EfficientNet (B0-B7) for serving, NHWC.
+"""EfficientNet (B0-B7), NHWC, for training and serving.
 
-Counterpart of ``multimodal_isic_tpu/models/efficientnet.py`` (eval side):
-MBConv with expand/depthwise/SE/project, swish, TF-SAME padding, BN with
-eps 1e-3, compound width/depth scaling, the BN-folded serving variant
-(``bn_folded``, weights from :func:`fold_batchnorm`) and the fused serving
-kernels (``pallas_serving``, the JAX flag's name kept).  Training parts
-(running-statistics update, drop-connect, remat, conv fission) are not here.
+Counterpart of ``multimodal_isic_tpu/models/efficientnet.py``: MBConv with
+expand/depthwise/SE/project, swish, TF-SAME padding, BN with eps 1e-3,
+compound width/depth scaling, drop-connect (rates ``drop_connect_rate·i/n``,
+:346) and feature dropout (``PARAMS[name][3]``, :358) in training, the
+BN-folded serving variant (``bn_folded``, weights from
+:func:`fold_batchnorm`) and the fused serving kernels (``pallas_serving``,
+the JAX flag's name kept).  ``remat`` and ``conv_fission`` have no
+counterpart here.
+
+Train and eval follow ``nn.Module.train()``/``eval()``.  BatchNorm in train
+mode normalizes with the biased batch variance and moves the running
+statistics with the unbiased one at flax momentum 0.99 (torch's 0.01), in
+float32 (the JAX ``TorchBatchNorm``).  The stochastic layers draw from the
+``rng`` generator the caller passes to ``forward``; a training forward that
+needs one and gets none raises (nothing reads torch's global RNG).  The
+BN-folded variant is inference-only: it starts in eval mode and its forward
+raises in train mode, as the JAX module does with ``train=True``.
 
 Layout: activations are contiguous NHWC tensors, as in the JAX package and
 the fused kernels.  1×1 convs are ``F.linear`` over the channel dim; the stem
-and depthwise convs hand cuDNN an NCHW view of the same memory in
-``torch.channels_last`` format (``ops/depthwise.py``), so no layout copies
+and depthwise convs and BatchNorm hand cuDNN an NCHW view of the same memory
+in ``torch.channels_last`` format (``ops/depthwise.py``), so no layout copies
 are made.  Conv weights are stored OIHW (``nn.Conv2d`` parameter holders), so
 the state dict reads like PyTorch's.
 
-The compute dtype is the dtype of the parameters (``model.to(torch.bfloat16)``
-for the bf16 serving backbone); BatchNorm computes in float32 and casts back,
-like the JAX ``TorchBatchNorm``.  Pooled features are returned in float32.
+``dtype`` is the compute dtype, as flax's ``dtype``: weights are cast to it
+where they are used (a no-op when they already are), so a bf16 backbone
+trains on float32 master parameters.  The serving variant may store its
+parameters in ``dtype`` itself (``model.to(torch.bfloat16)``).  BatchNorm
+computes in float32 and casts back; pooled features are returned in float32.
 
 With ``bn_folded=True`` and ``pallas_serving=True`` every stride-1 MBConv
 block runs one fused kernel (``ops/fused_dwconv.py``):
@@ -29,7 +42,7 @@ plain PyTorch.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,9 +109,14 @@ def feature_dim(model_name: str = "efficientnet-b3") -> int:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last (channel) dim, computed in float32
-    whatever the input dtype and cast back (JAX ``TorchBatchNorm`` with
-    ``use_running_average=True``)."""
+    """BatchNorm over the last (channel) dim of an NHWC tensor, with torch's
+    running-statistics rule (JAX ``TorchBatchNorm``): train mode normalizes
+    with the biased batch variance and moves the running mean and the
+    UNBIASED running variance with flax momentum 0.99; eval mode uses the
+    running statistics.  Statistics and arithmetic are float32 (float64 for
+    float64 inputs) whatever the input dtype; the output is cast back."""
+
+    MOMENTUM = 1.0 - 0.99  # flax decay 0.99 in torch's convention
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
@@ -109,24 +127,61 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = self.weight.float() * torch.rsqrt(self.running_var.float()
-                                                  + self.eps)
-        y = (x.float() - self.running_mean.float()) * scale + self.bias.float()
-        return y.to(x.dtype)
+        y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean,
+                         self.running_var, self.weight, self.bias,
+                         self.training, self.MOMENTUM, self.eps)
+        return y.permute(0, 2, 3, 1)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            rng: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale it by 1/keep, in train mode only; the mask comes from ``rng``."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=_need(rng), device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def drop_connect(x: torch.Tensor, rate: float, training: bool,
+                 rng: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth on the residual branch: one Bernoulli
+    keep flag per sample, scaled by 1/keep (JAX ``drop_connect``)."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                      generator=_need(rng), device=x.device) < keep
+    return x / keep * mask.to(x.dtype)
+
+
+def _need(rng: Optional[torch.Generator]) -> torch.Generator:
+    if rng is None:
+        raise ValueError("a training forward with dropout or drop-connect "
+                         "needs a torch.Generator: pass rng=")
+    return rng
+
+
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype):
+    return None if t is None else t.to(dtype)
 
 
 def _conv1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """1×1 conv of an NHWC tensor: a matmul over the channel dim."""
-    return F.linear(x, conv.weight.flatten(1), conv.bias)
+    """1×1 conv of an NHWC tensor in x.dtype: a matmul over the channel
+    dim."""
+    return F.linear(x, conv.weight.flatten(1).to(x.dtype),
+                    _cast(conv.bias, x.dtype))
 
 
 class MBConv(nn.Module):
     def __init__(self, expand_ratio: int, kernel: int, stride: int,
-                 in_filters: int, out_filters: int, bn_folded: bool = False,
-                 pallas_serving: bool = False):
+                 in_filters: int, out_filters: int, drop_rate: float = 0.0,
+                 bn_folded: bool = False, pallas_serving: bool = False):
         super().__init__()
         self.expand_ratio, self.kernel, self.stride = expand_ratio, kernel, stride
         self.in_filters, self.out_filters = in_filters, out_filters
+        self.drop_rate = drop_rate
         self.bn_folded, self.pallas_serving = bn_folded, pallas_serving
         mid = in_filters * expand_ratio
         bn = (lambda c: nn.Identity()) if bn_folded else BatchNorm
@@ -142,7 +197,8 @@ class MBConv(nn.Module):
         self.project_conv = nn.Conv2d(mid, out_filters, 1, bias=bn_folded)
         self.bn2 = bn(out_filters)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         inputs = x
         wd = self.depthwise_conv.weight.permute(2, 3, 1, 0)  # [K, K, 1, C]
         if self.bn_folded and self.pallas_serving and self.stride == 1:
@@ -158,51 +214,63 @@ class MBConv(nn.Module):
         else:
             if self.expand_ratio != 1:
                 x = F.silu(self.bn0(_conv1x1(x, self.expand_conv)))
-            x = depthwise_conv2d(x, wd, stride=self.stride,
-                                 bias=self.depthwise_conv.bias)
+            x = depthwise_conv2d(x, wd.to(x.dtype), stride=self.stride,
+                                 bias=_cast(self.depthwise_conv.bias, x.dtype))
             x = F.silu(self.bn1(x))
             se = x.mean(dim=(1, 2))
-        se = F.silu(F.linear(se, self.se_reduce.weight.flatten(1),
-                             self.se_reduce.bias))
-        se = F.linear(se, self.se_expand.weight.flatten(1), self.se_expand.bias)
+        se = F.silu(_conv1x1(se, self.se_reduce))
+        se = _conv1x1(se, self.se_expand)
         x = x * torch.sigmoid(se)[:, None, None, :]
         x = self.bn2(_conv1x1(x, self.project_conv))
         if self.stride == 1 and self.in_filters == self.out_filters:
-            x = x + inputs
+            x = drop_connect(x, self.drop_rate, self.training, rng) + inputs
         return x
 
 
 class EfficientNet(nn.Module):
     """Feature extractor: NHWC image [B, H, W, 3] → pooled features
-    [B, feature_dim] in float32 (eval mode; feature dropout is inactive)."""
+    [B, feature_dim] in float32, feature dropout applied in train mode."""
 
     def __init__(self, model_name: str = "efficientnet-b3",
+                 drop_connect_rate: float = 0.2, feature_dropout: bool = True,
+                 dtype: torch.dtype = torch.float32,
                  bn_folded: bool = False, pallas_serving: bool = False):
         super().__init__()
         if pallas_serving and not bn_folded:
             raise ValueError("pallas_serving requires bn_folded=True")
-        self.model_name = model_name
-        width = PARAMS[model_name][0]
+        self.model_name, self.dtype, self.bn_folded = model_name, dtype, bn_folded
+        width, _, _, dropout_rate = PARAMS[model_name]
+        self.dropout_rate = dropout_rate if feature_dropout else 0.0
         bn = (lambda c: nn.Identity()) if bn_folded else BatchNorm
         stem = round_filters(32, width)
         self.stem_conv = nn.Conv2d(3, stem, 3, 2, bias=bn_folded)
         self.stem_bn = bn(stem)
+        args = block_args(model_name)
         self.blocks = nn.ModuleList(
-            MBConv(*args, bn_folded=bn_folded, pallas_serving=pallas_serving)
-            for args in block_args(model_name))
+            MBConv(*a, drop_rate=drop_connect_rate * i / len(args),
+                   bn_folded=bn_folded, pallas_serving=pallas_serving)
+            for i, a in enumerate(args))
         head = feature_dim(model_name)
         self.head_conv = nn.Conv2d(self.blocks[-1].out_filters, head, 1,
                                    bias=bn_folded)
         self.head_bn = bn(head)
+        if bn_folded:
+            self.eval()  # inference-only variant
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.stem_conv.weight.dtype)
-        x = conv2d_nhwc(x, self.stem_conv.weight, self.stem_conv.bias, stride=2)
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.bn_folded and self.training:
+            raise ValueError("bn_folded is an inference-only variant: call "
+                             ".eval() on it")
+        x = x.to(self.dtype)
+        x = conv2d_nhwc(x, self.stem_conv.weight.to(x.dtype),
+                        _cast(self.stem_conv.bias, x.dtype), stride=2)
         x = F.silu(self.stem_bn(x))
         for block in self.blocks:
-            x = block(x)
+            x = block(x, rng)
         x = F.silu(self.head_bn(_conv1x1(x, self.head_conv)))
-        return x.mean(dim=(1, 2)).float()
+        x = x.mean(dim=(1, 2)).float()
+        return dropout(x, self.dropout_rate, self.training, rng)
 
 
 # ------------------------------------------------ inference BN folding

@@ -1,4 +1,4 @@
-"""Multimodal fusion classifier (eval).
+"""Multimodal fusion classifier.
 
 Counterpart of ``multimodal_isic_tpu/models/fusion.py``, which re-creates the
 reference's ``MultiModalFusionNet`` (``model.py:42-227``): modality subsets,
@@ -9,8 +9,15 @@ flax parameter tree, so ``models/convert.py`` maps one onto the other.
 Branch dims: image backbone features → 256 → 128; radiomics 780 → 256 → 128;
 clinical 13 (age + sex-emb 4 + loc-emb 8) → 64 → 128; artifacts 12
 (6 × Embedding(2, 2)) → 64 → 128.  LayerNorm uses flax's eps 1e-6.
-The backbone computes in ``dtype``; the branch MLPs and fusion heads stay
-float32.
+The backbone computes in ``dtype`` on float32 master parameters (the
+BN-folded serving backbone, inference-only, stores its parameters in
+``dtype``); the branch MLPs and fusion heads stay float32.
+
+In train mode the dropouts of the JAX module are active: ``ProjMlp`` after
+each ReLU (``models/fusion.py:39,43``, rates per branch as there) and 0.4
+after ``fusion_fc1`` (:166), plus the backbone's drop-connect and feature
+dropout.  They draw, in module order, from the ``rng`` generator passed to
+``forward``.
 """
 
 from __future__ import annotations
@@ -21,26 +28,29 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .efficientnet import EfficientNet, feature_dim, fold_batchnorm
+from .efficientnet import EfficientNet, dropout, feature_dim, fold_batchnorm
 
 SHARED_DIM = 128
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
 
 class ProjMlp(nn.Module):
-    """Linear→LayerNorm→ReLU ×2 projector (model.py:63-105); dropout is
-    inactive in eval."""
+    """Linear→LayerNorm→ReLU→Dropout ×2 projector (model.py:63-105)."""
 
-    def __init__(self, din: int, hidden: int, out: int):
+    def __init__(self, din: int, hidden: int, out: int, drop1: float,
+                 drop2: float):
         super().__init__()
+        self.drop1, self.drop2 = drop1, drop2
         self.fc1 = nn.Linear(din, hidden)
         self.ln1 = nn.LayerNorm(hidden, eps=LN_EPS)
         self.fc2 = nn.Linear(hidden, out)
         self.ln2 = nn.LayerNorm(out, eps=LN_EPS)
 
-    def forward(self, x):
-        x = F.relu(self.ln1(self.fc1(x)))
-        return F.relu(self.ln2(self.fc2(x)))
+    def forward(self, x, rng: Optional[torch.Generator] = None):
+        x = dropout(F.relu(self.ln1(self.fc1(x))), self.drop1, self.training,
+                    rng)
+        return dropout(F.relu(self.ln2(self.fc2(x))), self.drop2,
+                       self.training, rng)
 
 
 class AttentionFusion(nn.Module):
@@ -98,19 +108,24 @@ class MultiModalFusionNet(nn.Module):
 
         if "image" in self.modality:
             self.image_model = EfficientNet(
-                backbone, bn_folded=backbone_bn_folded,
-                pallas_serving=backbone_pallas_serving).to(dtype)
-            self.image_proj = ProjMlp(feature_dim(backbone), 256, SHARED_DIM)
+                backbone, dtype=dtype, bn_folded=backbone_bn_folded,
+                pallas_serving=backbone_pallas_serving)
+            if backbone_bn_folded:  # inference-only: no master copy needed
+                self.image_model.to(dtype)
+            self.image_proj = ProjMlp(feature_dim(backbone), 256, SHARED_DIM,
+                                      0.3, 0.2)
         if "radiomics" in self.modality:
-            self.radiomics_mlp = ProjMlp(radiomics_dim, 256, SHARED_DIM)
+            self.radiomics_mlp = ProjMlp(radiomics_dim, 256, SHARED_DIM,
+                                         0.4, 0.3)
         if "clinical" in self.modality:
             self.sex_emb = nn.Embedding(num_sex_classes, 4)
             self.loc_emb = nn.Embedding(num_loc_classes, 8)
-            self.clinical_mlp = ProjMlp(13, 64, SHARED_DIM)
+            self.clinical_mlp = ProjMlp(13, 64, SHARED_DIM, 0.2, 0.2)
         if "artifacts" in self.modality:
             for i in range(num_artifact_classes):
                 self.add_module(f"artifact_emb_{i}", nn.Embedding(2, 2))
-            self.artifact_mlp = ProjMlp(2 * num_artifact_classes, 64, SHARED_DIM)
+            self.artifact_mlp = ProjMlp(2 * num_artifact_classes, 64,
+                                        SHARED_DIM, 0.2, 0.2)
         if late:
             for mod in self.modality:
                 self.add_module(f"head_{mod}", nn.Linear(SHARED_DIM, num_classes))
@@ -125,10 +140,12 @@ class MultiModalFusionNet(nn.Module):
             self.fusion_fc2 = nn.Linear(256, num_classes)
 
     def forward(self, image=None, radiomics=None, age=None, sex=None, loc=None,
-                artifacts=None, image_features: Optional[torch.Tensor] = None):
+                artifacts=None, image_features: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None):
         """Per-modality branches → fusion → [B, num_classes] logits.
         ``image`` is NHWC; ``image_features`` (pre-extracted backbone
-        features) may replace it."""
+        features) may replace it.  ``rng`` feeds the dropouts in train
+        mode."""
         late = self.fusion_level == "late"
         outs = []  # features (intermediate) or logits (late), modality order
 
@@ -137,18 +154,18 @@ class MultiModalFusionNet(nn.Module):
 
         if "image" in self.modality:
             if image_features is None:
-                image_features = self.image_model(image)
-            add("image", self.image_proj(image_features))
+                image_features = self.image_model(image, rng)
+            add("image", self.image_proj(image_features, rng))
         if "radiomics" in self.modality:
-            add("radiomics", self.radiomics_mlp(radiomics))
+            add("radiomics", self.radiomics_mlp(radiomics, rng))
         if "clinical" in self.modality:
             clin = torch.cat([age[:, None], self.sex_emb(sex), self.loc_emb(loc)],
                              dim=1)
-            add("clinical", self.clinical_mlp(clin))
+            add("clinical", self.clinical_mlp(clin, rng))
         if "artifacts" in self.modality:
             arts = [getattr(self, f"artifact_emb_{i}")(artifacts[:, i])
                     for i in range(self.num_artifact_classes)]
-            add("artifacts", self.artifact_mlp(torch.cat(arts, dim=1)))
+            add("artifacts", self.artifact_mlp(torch.cat(arts, dim=1), rng))
 
         if not late:
             if self.fusion_strategy == "concat":
@@ -158,7 +175,8 @@ class MultiModalFusionNet(nn.Module):
                 fused = torch.cat([wi * f for wi, f in zip(w, outs)], dim=1)
             else:
                 fused = self.attention(outs)
-            return self.fusion_fc2(F.relu(self.fusion_fc1(fused)))
+            x = F.relu(self.fusion_fc1(fused))
+            return self.fusion_fc2(dropout(x, 0.4, self.training, rng))
         if self.fusion_strategy == "concat":  # sum of logits (model.py:219-221)
             return torch.stack(outs, dim=1).sum(dim=1)
         if self.fusion_strategy == "weighted":

@@ -8,9 +8,12 @@ present.  Run them on a GPU machine with
 This file imports no JAX (and ``--noconftest`` skips the JAX conftest), so
 it runs where JAX is not installed."""
 
+import math
+
 import pytest
 import torch
 
+from multimodal_isic_tpu_torch.ops import affine_warp as aw
 from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
 
 pytestmark = pytest.mark.cuda
@@ -19,6 +22,13 @@ pytestmark = pytest.mark.cuda
 # in the pool); bf16 may flip one rounding of the expand output or y.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 POOL_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 1e-3)}
+# warp, 0..255 scale: the kernel and the plain gather share coordinates
+# (explicitly rounded, JAX order); the four-tap blend rounds in another order
+WARP_ATOL = 2e-2
+# grid_sample works in normalised coordinates (|x_n| up to ~3 here): their
+# f32 rounding, times (n-1)/2 px, times up to 255 per px, reaches ~0.05 at
+# 380² with a large overhang
+GRID_SAMPLE_ATOL = 0.1
 
 
 @pytest.fixture
@@ -86,3 +96,64 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     x = torch.randn(1, 8, 8, 16, device="cpu")
     fd.dw_silu_pool(x, torch.randn(3, 3, 1, 16), torch.randn(16))
     assert fd.dw_silu_pool.launches == before  # CPU: the plain version
+
+
+def _affines(cases, h, w, device):
+    """(dx, dy, scale, angle°) → inverse affines [B, 6] about the centre."""
+    rows = []
+    for dx, dy, s, a in cases:
+        t = math.radians(a)
+        al, be = s * math.cos(t), s * math.sin(t)
+        cx, cy = (w - 1) / 2, (h - 1) / 2
+        a13 = (1 - al) * cx - be * cy + dx * w
+        a23 = be * cx + (1 - al) * cy + dy * h
+        det = al * al + be * be
+        i11, i12, i21, i22 = al / det, -be / det, be / det, al / det
+        rows.append([i11, i12, -(i11 * a13 + i12 * a23),
+                     i21, i22, -(i21 * a13 + i22 * a23)])
+    return torch.tensor(rows, dtype=torch.float32, device=device)
+
+
+# the policy's domain corners, the identity, overhangs far beyond the JAX
+# pad budget, at odd and non-square sizes and the slice's 380²
+@pytest.mark.parametrize("h,w,out_hw", [(97, 131, (97, 131)), (1, 7, (3, 5)),
+                                        (50, 70, (40, 90)),
+                                        (380, 380, (380, 380))])
+def test_warp_kernel_matches_plain_and_grid_sample(cuda, h, w, out_hw):
+    cases = [(0.05, 0.05, 0.9, 15.0), (-0.05, -0.05, 1.1, -15.0),
+             (0.0, 0.0, 1.0, 0.0), (0.45, -0.4, 0.6, 170.0),
+             (-0.6, 0.3, 1.4, -95.0)]
+    g = torch.Generator(device=cuda).manual_seed(2)
+    imgs = torch.randint(0, 256, (len(cases), h, w, 3), generator=g,
+                         device=cuda).float()
+    inv = _affines(cases, h, w, cuda)
+    before = aw.affine_warp_batch.launches
+    out = aw.affine_warp_batch(imgs, inv, out_hw)
+    torch.cuda.synchronize()
+    assert aw.affine_warp_batch.launches == before + 1
+    assert out.shape == (len(cases), *out_hw, 3)
+    ref = aw.affine_warp_batch_reference(imgs, inv, out_hw)
+    torch.testing.assert_close(out, ref, atol=WARP_ATOL, rtol=0)
+    if min(h, w) > 1:  # grid_sample's normalisation divides by n - 1
+        lib = aw.affine_warp_grid_sample(imgs, inv, out_hw)
+        torch.testing.assert_close(out, lib, atol=GRID_SAMPLE_ATOL, rtol=0)
+
+
+def test_warp_kernel_apply_flags_mixed(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    imgs = torch.rand(6, 64, 48, 3, generator=g, device=cuda) * 255
+    inv = _affines([(0.05, -0.02, 1.05, 12.0)] * 6, 64, 48, cuda)
+    apply = torch.tensor([True, False, True, True, False, False], device=cuda)
+    out = aw.affine_warp_batch(imgs, inv, (64, 48), apply=apply)
+    ref = aw.affine_warp_batch_reference(imgs, inv, (64, 48), apply=apply)
+    torch.testing.assert_close(out, ref, atol=WARP_ATOL, rtol=0)
+    assert torch.equal(out[~apply], imgs[~apply])
+
+
+def test_warp_kernel_rejects_what_it_cannot_take(cuda):
+    imgs = torch.zeros(2, 8, 8, 3, device=cuda)
+    inv = _affines([(0, 0, 1, 0)] * 2, 8, 8, cuda)
+    with pytest.raises(ValueError):  # not contiguous
+        aw.affine_warp_batch(imgs.transpose(1, 2), inv, (8, 8))
+    with pytest.raises(ValueError):  # inv on another device
+        aw.affine_warp_batch(imgs, inv.cpu(), (8, 8))
