@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving and training slices on one CUDA
-card.
+"""Smoke run of the PyTorch port's serving, training and radiomics slices on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,9 @@ Drives ``multimodal_isic_tpu_torch`` end to end at the full EfficientNet-B3
 width with random weights from a seed:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the kernels (``csrc/fused_dwconv.cu``, ``csrc/affine_warp.cu``),
-   one nvcc per source, started together;
+2. builds the kernels (``csrc/fused_dwconv.cu``, ``csrc/affine_warp.cu``,
+   ``csrc/glcm.cu``, ``csrc/glrlm_runs.cu``, ``csrc/histogram.cu``,
+   ``csrc/connected_components.cu``), one nvcc per source, started together;
 3. holds each fused MBConv kernel against its plain PyTorch version at every
    geometry the B3@380 serving forward gives it, in bf16 and float32;
 4. serves 64 in-memory requests (rendered 450×600 samples, centroid-cropped
@@ -33,7 +34,20 @@ width with random weights from a seed:
 8. times the kernels against their plain versions (and the warp against
    ``grid_sample``), the fast policy, the train step in img/s at bs 16 f32
    and bs 128 with a bf16 backbone, and preprocess + folded forward on the
-   kernel path against the plain path, with CUDA events.
+   kernel path against the plain path, with CUDA events;
+9. radiomics extraction (the 13-filter bank × six texture classes +
+   shape2D, 4,872 features an image): holds the GLCM, GLRLM-runs,
+   joint-histogram and connected-components kernels bit for bit against
+   their plain versions on a real chunk's derived images (64 maps of
+   450×600: original, LoG σ 3, wavelet-HH) and on full-frame edge cases;
+   extracts 32 rendered 450×600 lesions (a depth cut of HAM10000's 10,015)
+   in 2 chunks of 16 on the kernel path and checks the columns, shape2D
+   across channels and 13 launches of each kernel per chunk; extracts them
+   again on the plain path (NaNs at the same places, every feature within
+   ``RAD_TOL``) and two small crops on the CPU; times each kernel against
+   its plain version and ``torch.bincount`` where one call computes the same
+   counts, extraction img/s on both paths, peak memory, and a profile of
+   one chunk by kernel family.
 
 Float32 on the card runs in full float32 here: TF32 is off for cuDNN and
 cuBLAS throughout (``torch.backends.cudnn.allow_tf32 = False``).
@@ -66,12 +80,27 @@ RADIOMICS_DIM = 780
 N_TRAIN = 160             # rendered requests of the training slice
 EPOCHS = 2
 LEARN_STEPS = 20
+RAD_N = 32                # rendered 450×600 samples (HAM10000 holds 10,015)
+RAD_CHUNK = 16            # images per chunk, cli/extract_radiomics.py:24
+RAD_CHECK_TYPES = ("original", "log-sigma-3-0-mm-3D", "wavelet-HH")
+NG, MAX_LEN = 64, 640     # gray levels; glrlm_max_len
 SOURCE = {"dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
           "expand_dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
-          "affine_warp_batch": "multimodal_isic_tpu_torch/csrc/affine_warp.cu"}
+          "affine_warp_batch": "multimodal_isic_tpu_torch/csrc/affine_warp.cu",
+          "glcm_matrices": "multimodal_isic_tpu_torch/csrc/glcm.cu",
+          "glrlm_runs": "multimodal_isic_tpu_torch/csrc/glrlm_runs.cu",
+          "joint_histogram": "multimodal_isic_tpu_torch/csrc/histogram.cu",
+          "connected_components":
+              "multimodal_isic_tpu_torch/csrc/connected_components.cu"}
 REPLACES = {"dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:272",
             "expand_dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:326",
-            "affine_warp_batch": "multimodal_isic_tpu/ops/pallas_warp.py:190"}
+            "affine_warp_batch": "multimodal_isic_tpu/ops/pallas_warp.py:190",
+            "glcm_matrices": "multimodal_isic_tpu/ops/pallas_glcm.py:95",
+            "glrlm_runs": "multimodal_isic_tpu/ops/pallas_glrlm.py:105",
+            "joint_histogram": "multimodal_isic_tpu/ops/pallas_hist.py:81",
+            "connected_components": "multimodal_isic_tpu/ops/pallas_cc.py:148"}
+RAD_KERNELS = ("glcm_matrices", "glrlm_runs", "joint_histogram",
+               "connected_components")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
 # and float32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -101,6 +130,15 @@ GRID_SAMPLE_ATOL = 0.1
 # Folded f32 kernel path vs the unfolded f32 model it was folded from: the
 # fold is exact in float64, then rounded to f32 once.
 LOGIT_TOL_FOLDED_F32 = dict(rtol=1e-3, atol=1e-3)
+# Radiomics features, kernel path vs plain path on the card: the four
+# kernels' outputs are bit-equal to their plain versions, so the features
+# differ only where float sums go through atomics in another order (NGTDM's
+# per-level Σ|diff| by index_add_); NaNs must sit at the same places.
+RAD_TOL = dict(rtol=1e-5, atol=1e-6)
+# Card (kernel path) vs CPU (plain path) on a small input: the same code, but
+# CUDA's and the CPU's exp/log and reduction orders round differently; the
+# tight comparison with the JAX package is in the CPU tests.
+RAD_CPU_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
 def serving_geometries(name: str = "efficientnet-b3", size: int = IMG):
@@ -521,6 +559,12 @@ def learning_evidence(device, train_ds):
 
 KERNEL_FAMILIES = (  # (label, substrings of the kernel name), first match
     ("warp kernel", ("affine_warp",)),
+    ("GLCM kernel", ("glcm_counts",)),
+    ("GLRLM runs kernels", ("runs_rows", "runs_lines")),
+    ("joint histogram kernel", ("joint_hist",)),
+    ("connected-components kernels", ("cc_init", "cc_merge", "cc_compress")),
+    ("sorts", ("sort", "radix")),
+    ("scatters, index_add", ("scatter", "index_add", "indexfunc")),
     ("fused MBConv kernels", ("mbconv",)),
     ("convolutions and GEMMs", ("conv", "gemm", "xmma", "cutlass", "sm90",
                                 "wgrad", "dgrad")),
@@ -632,6 +676,304 @@ def time_training(device, train_ds):
     return warp
 
 
+# ----------------------------------------------------------------- radiomics
+
+def radiomics_samples(n: int = RAD_N, seed: int = SEED + 7):
+    """n rendered 450×600 lesions (uint8 RGB) and their masks (255 inside)."""
+    from multimodal_isic_tpu_torch.data.synthetic import (DX_CLASSES,
+                                                          _render_sample)
+    rng = np.random.RandomState(seed)
+    imgs, masks = zip(*[_render_sample(rng, *SRC_HW, i % len(DX_CLASSES))
+                        for i in range(n)])
+    return np.stack(imgs), np.stack(masks)
+
+
+def _rad_fns():
+    """name → (wrapper module, kernel wrapper, plain version)."""
+    from multimodal_isic_tpu_torch.ops import connected_components as C
+    from multimodal_isic_tpu_torch.ops import glcm as G
+    from multimodal_isic_tpu_torch.ops import glrlm_runs as R
+    from multimodal_isic_tpu_torch.ops import histogram as Hm
+    return {"glcm_matrices": (G.glcm_matrices, G.glcm_matrices_reference),
+            "glrlm_runs": (R.glrlm_runs, R.glrlm_runs_reference),
+            "joint_histogram": (Hm.joint_histogram,
+                                Hm.joint_histogram_reference),
+            "connected_components": (C.connected_components,
+                                     C.connected_components_reference)}
+
+
+def _run_codes(packed, max_len=MAX_LEN):
+    """Packed runs [M, 4, H, W] → the GLRLM histogram's (gray, length) code
+    rows [M·4, H·W], as ``texture.glrlm_matrices`` builds them."""
+    from multimodal_isic_tpu_torch.ops.glrlm_runs import unpack_runs
+    start, gray, length = unpack_runs(packed)
+    m, _, h, w = packed.shape
+    g = torch.where(start, gray, 0).reshape(m * 4, h * w)
+    ln = torch.where(start, length.clamp(1, max_len), 0).reshape(m * 4, h * w)
+    return g, ln
+
+
+def _rad_chunk_levels(device, rgb, masks, types=RAD_CHECK_TYPES):
+    """The chunk's [M, H, W] levels and masks for the derived images
+    ``types``, as the extractor computes them."""
+    from multimodal_isic_tpu_torch.analysis.radiomics import RadiomicsExtractor
+    from multimodal_isic_tpu_torch.ops import filters as FB
+    from multimodal_isic_tpu_torch.ops import texture as T
+    ex = RadiomicsExtractor(device=device)
+    chans, m4, _ = ex._prep(torch.from_numpy(rgb).to(device),
+                            torch.from_numpy(masks).to(device))
+    bank = FB.filter_bank(chans)
+    return {t: (T.discretize(bank[t], m4, 10.0)[0], m4) for t in types}
+
+
+def _rad_edge_cases(device, h=SRC_HW[0], w=SRC_HW[1]):
+    """Full-frame edge maps: an empty mask, a full frame of random levels,
+    one gray level over the whole frame (600-px runs), the serpentine."""
+    g = torch.Generator(device=device).manual_seed(SEED + 8)
+    rand = torch.randint(1, 7, (h, w), generator=g, device=device,
+                         dtype=torch.int32)
+    snake = torch.zeros((h, w), dtype=torch.bool, device=device)
+    snake[0::2] = True
+    for r in range(1, h, 2):
+        snake[r, w - 1 if (r // 2) % 2 == 0 else 0] = True
+    levels = torch.stack([torch.zeros_like(rand), rand, torch.ones_like(rand),
+                          torch.where(snake, 7, 2).to(torch.int32)])
+    mask = torch.full((4, h, w), 255, dtype=torch.uint8, device=device)
+    mask[0] = 0
+    return levels, mask
+
+
+def check_radiomics_kernels(device, rgb, masks):
+    """Each radiomics kernel against its plain version, bit for bit: on a
+    real chunk's derived images (M = 64 maps of 450×600: original, LoG σ 3,
+    wavelet-HH) and on the full-frame edge cases (empty mask, full frame,
+    single level, a run longer than the histogram's length range, the
+    serpentine) → worst |kernel − plain| per kernel (must be 0)."""
+    fns = _rad_fns()
+    cases = dict(_rad_chunk_levels(device, rgb, masks))
+    cases["edge cases"] = _rad_edge_cases(device)
+    worst = {k: 0.0 for k in RAD_KERNELS}
+    failures = []
+    for label, (levels, m) in cases.items():
+        inside = m > 0
+        outs = {}
+        for name, args in (("glcm_matrices", (levels, m)),
+                           ("glrlm_runs", (levels, inside)),
+                           ("connected_components", (levels, inside))):
+            outs[name] = [fn(*args) for fn in fns[name]]
+        hist_cases = [(*_run_codes(outs["glrlm_runs"][0]), NG, MAX_LEN)]
+        if label == "edge cases":  # 600-px runs beyond a 512-bin range
+            hist_cases.append((*_run_codes(outs["glrlm_runs"][0], 512), NG,
+                               512))
+        for codes in hist_cases:
+            outs.setdefault("joint_histogram", []).extend(
+                fn(*codes) for fn in fns["joint_histogram"])
+        torch.cuda.synchronize()
+        for name, vals in outs.items():
+            for got, want in zip(vals[0::2], vals[1::2]):
+                err = float((got.double() - want.double()).abs().max())
+                worst[name] = max(worst[name], err)
+                if not torch.equal(got, want):
+                    failures.append(f"{name} on {label}")
+        print(f"check radiomics kernels, {label} {tuple(levels.shape)}: "
+              + ", ".join(f"{k} {worst[k]:.0f}" for k in RAD_KERNELS))
+    levels, _ = cases["edge cases"]
+    snake = outs["connected_components"][0][3][levels[3] == 7]
+    if snake.unique().numel() != 1:
+        failures.append("the serpentine is not one zone")
+    if failures:
+        raise AssertionError(f"radiomics kernel != plain: {failures}")
+    return worst
+
+
+def _feature_err(got, want):
+    """|got − want|, 0 where both are the same infinity (an empty ROI's
+    Range is −inf on every path, as in the JAX package)."""
+    with np.errstate(invalid="ignore"):
+        return np.where(got == want, 0.0, np.abs(got - want))
+
+
+def _frame_checks(cols, vals, results):
+    if len(cols) != 4872 or vals.shape[1] != 4872:
+        raise AssertionError(f"{len(cols)} columns, {vals.shape}")
+    for res in results:
+        for k, v in res["grayscale"].items():
+            if "_shape2D_" in k and any(res[ch][k] != v for ch in res):
+                raise AssertionError(f"shape2D {k} differs across channels")
+
+
+def radiomics_path(device, rgb, masks):
+    """The extraction path: RAD_N samples in chunks of RAD_CHUNK on the
+    kernel path, with the launch counts; the plain path on the same images
+    (NaNs at the same places, every feature within RAD_TOL); and a small
+    input on the card against the plain path on the CPU."""
+    from multimodal_isic_tpu_torch.analysis.radiomics import (
+        RadiomicsExtractor, features_to_frame)
+    fns = _rad_fns()
+    ex = RadiomicsExtractor(batch=RAD_CHUNK, device=device)
+    ex.extract_batches(rgb[:2], masks[:2])  # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    for name in RAD_KERNELS:
+        fns[name][0].launches = 0
+    t0 = time.perf_counter()
+    results = ex.extract_batches(rgb, masks)
+    wall = time.perf_counter() - t0
+    launches = {name: fns[name][0].launches for name in RAD_KERNELS}
+    n_chunks = -(-len(rgb) // RAD_CHUNK)
+    cols, vals = features_to_frame(results)
+    print(f"radiomics: {len(rgb)} rendered {SRC_HW[0]}x{SRC_HW[1]} images in "
+          f"{n_chunks} chunks of {RAD_CHUNK} (kernel path): {len(cols)} "
+          f"columns in {wall:.1f} s; kernel launches {launches} (13 derived "
+          f"images x {n_chunks} chunks); NaN features "
+          f"{int(np.isnan(vals).sum())} of {vals.size}")
+    _frame_checks(cols, vals, results)
+    if any(v != 13 * n_chunks for v in launches.values()):
+        raise AssertionError(f"launches {launches} != 13 x {n_chunks}")
+
+    plain = RadiomicsExtractor(batch=RAD_CHUNK, use_kernels=False,
+                               device=device)
+    p_cols, p_vals = features_to_frame(plain.extract_batches(rgb, masks))
+    if p_cols != cols:
+        raise AssertionError("plain path columns differ")
+    nan_k, nan_p = np.isnan(vals), np.isnan(p_vals)
+    if not np.array_equal(nan_k, nan_p):
+        raise AssertionError("kernel and plain paths put NaNs in other places")
+    ok = ~nan_p
+    err = _feature_err(vals[ok], p_vals[ok])
+    lim = RAD_TOL["atol"] + RAD_TOL["rtol"] * np.abs(p_vals[ok])
+    n_bad = int((err > lim).sum())
+    print(f"radiomics kernel path vs plain path: max_abs_err {err.max():.3e}, "
+          f"{int((err > 0).sum())} of {err.size} values differ at all, "
+          f"{n_bad} outside {RAD_TOL}")
+    if n_bad:
+        worst = np.argsort(-(err - lim))[:5]
+        flat = np.flatnonzero(ok)
+        raise AssertionError("kernel vs plain features: " + str(
+            [(cols[flat[i] % 4872], vals[ok][i], p_vals[ok][i]) for i in worst]))
+
+    cy, cx = rgb.shape[1] // 2, rgb.shape[2] // 2  # lesions centre mid-frame
+    crop = (slice(0, 2), slice(cy - 32, cy + 32), slice(cx - 40, cx + 40))
+    small = (rgb[crop].copy(), masks[crop].copy())
+    small[1][1] = 0  # an empty mask: NaN percentiles, degenerate classes
+    cuda_v = features_to_frame(RadiomicsExtractor(device=device)
+                               .extract_channels_batch(*small))[1]
+    cpu_v = features_to_frame(RadiomicsExtractor(use_kernels=False,
+                                                 device="cpu")
+                              .extract_channels_batch(*small))[1]
+    same_nan = np.array_equal(np.isnan(cuda_v), np.isnan(cpu_v))
+    ok = ~np.isnan(cpu_v)
+    err = _feature_err(cuda_v[ok], cpu_v[ok])
+    n_bad = int((err > RAD_CPU_TOL["atol"]
+                 + RAD_CPU_TOL["rtol"] * np.abs(cpu_v[ok])).sum())
+    print(f"radiomics 2 x 64x80 crops, card kernel path vs CPU plain path: "
+          f"max_abs_err {err.max():.3e}, {n_bad} values outside "
+          f"{RAD_CPU_TOL}, NaNs at the same places: {same_nan}")
+    if n_bad or not same_nan:
+        raise AssertionError("card vs CPU radiomics features differ")
+    return launches
+
+
+def rad_bound_ms(name, m, h, w):
+    """(bytes ms, operations ms) of one call at M maps of H×W: inputs read
+    once, outputs written once (int32 levels, 1-byte masks, int32 codes and
+    labels, float32 histograms); about 10 32-bit integer operations per
+    element, counted at the float32 CUDA-core rate."""
+    px = m * h * w
+    nbytes = {"glcm_matrices": px * 5 + m * 4 * NG * NG * 4,
+              "glrlm_runs": px * 5 + px * 4 * 4,
+              "joint_histogram": 4 * px * 8 + 4 * m * NG * MAX_LEN * 4,
+              "connected_components": px * 5 + px * 4}[name]
+    elems = 4 * px if name in ("glrlm_runs", "joint_histogram") else px
+    return nbytes / HBM_BPS * 1e3, 10 * elems / F32_FLOPS * 1e3
+
+
+def time_radiomics(device, rgb, masks):
+    """Each radiomics kernel at the path's shapes (one chunk's original
+    image: M = 64 maps of 450×600) against its plain version and, where one
+    PyTorch call computes the same function, that call (torch.bincount over
+    the packed keys of the counted pairs, the keys built inside the timed
+    call); then extraction
+    img/s on the kernel and plain paths, peak device memory, and a profile
+    of one chunk by kernel family."""
+    from multimodal_isic_tpu_torch.analysis.radiomics import RadiomicsExtractor
+    from multimodal_isic_tpu_torch.ops import histogram as Hm
+    from multimodal_isic_tpu_torch.ops.texture import ANGLES_2D, shift2d
+    from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
+    fns = _rad_fns()
+    levels, m4 = _rad_chunk_levels(device, rgb[:RAD_CHUNK],
+                                   masks[:RAD_CHUNK], ("original",))["original"]
+    inside = m4 > 0
+    m, h, w = levels.shape
+    codes = _run_codes(fns["glrlm_runs"][0](levels, inside))
+
+    def glcm_bincount():
+        lv = torch.where(inside, levels, 0)
+        base = (torch.arange(m, device=device) * 4 * NG * NG).view(m, 1, 1)
+        keys = []
+        for a, (dy, dx) in enumerate(ANGLES_2D):
+            nbr = shift2d(lv, -dy, -dx, 0)
+            ok = (lv > 0) & (nbr > 0)
+            keys.append((base + (a * NG + lv - 1) * NG + nbr - 1)[ok])
+        p = torch.bincount(torch.cat(keys), minlength=m * 4 * NG * NG)
+        p = p.view(m, 4, NG, NG)
+        return (p + p.transpose(-1, -2)).float()
+
+    args = {"glcm_matrices": (levels, m4), "glrlm_runs": (levels, inside),
+            "joint_histogram": (*codes, NG, MAX_LEN),
+            "connected_components": (levels, inside)}
+    library = {"glcm_matrices": glcm_bincount,
+               "joint_histogram": lambda: Hm.library_joint_histogram(
+                   *codes, NG, MAX_LEN)}
+    out = {}
+    for name in RAD_KERNELS:
+        kern, ref = fns[name]
+        runs = {"kernel": [], "plain": [], "library": []}
+        order = ["plain", "kernel", "kernel", "plain"]
+        if name in library:
+            order += ["library", "library"]
+        for which in order:
+            fn = {"kernel": lambda: kern(*args[name]),
+                  "plain": lambda: ref(*args[name]),
+                  "library": library.get(name)}[which]
+            iters = 20 if which == "kernel" else 3
+            runs[which].append(timeit_closed(fn, iters=iters, repeats=3))
+        med = {k: min(r["median"] for r in v) * 1e3 for k, v in runs.items() if v}
+        b_bytes, b_ops = rad_bound_ms(name, m, h, w)
+        bound = max(b_bytes, b_ops)
+        out[name] = (med["kernel"], med["plain"], bound, b_bytes, b_ops,
+                     med.get("library"))
+        lib = (f", library {med['library']:.4f} ms" if "library" in med
+               else ", library none")
+        print(f"time {name} M{m} {h}x{w}: kernel {med['kernel']:.4f} ms, "
+              f"plain {med['plain']:.4f} ms ({med['plain'] / med['kernel']:.1f}x)"
+              f"{lib}; bound {bound:.4f} ms (bytes {b_bytes:.4f}, operations "
+              f"{b_ops:.4f}): {bound / med['kernel']:.1%} of it")
+
+    chunk = (rgb[:RAD_CHUNK], masks[:RAD_CHUNK])
+    exs = {"kernel": RadiomicsExtractor(device=device),
+           "plain": RadiomicsExtractor(use_kernels=False, device=device)}
+    t = {"kernel": [], "plain": []}
+    peak = {}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t[which].append(timeit_closed(lambda: exs[which]._extract(*chunk),
+                                      iters=1, repeats=3))
+        peak[which] = torch.cuda.max_memory_allocated() / 2**30
+    for which, runs in t.items():
+        secs = [s for r in runs for s in r["all"]]
+        print(f"radiomics extraction, {which} path, chunks of {RAD_CHUNK} "
+              f"images {SRC_HW[0]}x{SRC_HW[1]}: "
+              f"{RAD_CHUNK / float(np.median(secs)):.2f} img/s (median of "
+              f"{len(secs)} chunks, best {RAD_CHUNK / min(secs):.2f}); "
+              f"{float(np.median(secs)):.3f} s per chunk; peak device memory "
+              f"{peak[which]:.2f} GiB")
+    for which in ("kernel", "plain"):
+        profile_steps(lambda: exs[which]._extract(*chunk),
+                      f"radiomics chunk of {RAD_CHUNK}, {which} path", steps=1)
+    return out
+
+
 def to_device_batch(reqs, device, sl=slice(None)):
     return {k: torch.from_numpy(np.ascontiguousarray(v[sl])).to(device)
             for k, v in reqs.items()}
@@ -645,7 +987,9 @@ def main() -> int:
     from multimodal_isic_tpu_torch.data.augment import preprocess_eval_batch
     from multimodal_isic_tpu_torch.ops import _build
     from multimodal_isic_tpu_torch.ops import affine_warp as aw
+    from multimodal_isic_tpu_torch.ops import connected_components as cc
     from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
+    from multimodal_isic_tpu_torch.ops import glcm, glrlm_runs, histogram
     from multimodal_isic_tpu_torch.train.fusion import (evaluate_test,
                                                         make_fusion_eval_step)
     from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
@@ -667,10 +1011,14 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor() as pool:
-        list(pool.map(lambda load: load(), (fd._lib, aw._lib)))
-    print(f"build: both kernel libraries in {time.perf_counter() - t0:.1f} s")
-    for name in ("fused_dwconv", "affine_warp"):
+    libs = {"fused_dwconv": fd._lib, "affine_warp": aw._lib,
+            "glcm": glcm._lib, "glrlm_runs": glrlm_runs._lib,
+            "histogram": histogram._lib, "connected_components": cc._lib}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda load: load(), libs.values()))
+    print(f"build: {len(libs)} kernel libraries in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in libs:
         lib = _build.library_path(name)
         print(f"  {lib.relative_to(lib.parents[2])}")
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -801,10 +1149,27 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB; wall {time.perf_counter() - t_start:.1f} s")
 
+    # 9. radiomics extraction: kernels vs plain, the path, times
+    del kernel_m, plain_m, standard_m, train_ds
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rgb, masks = radiomics_samples()
+    print(f"radiomics: rendered {len(rgb)} samples in "
+          f"{time.perf_counter() - t0:.1f} s (depth cut: {len(rgb)} images of "
+          f"HAM10000's 10,015)")
+    worst_err.update(check_radiomics_kernels(device, rgb[:RAD_CHUNK],
+                                             masks[:RAD_CHUNK]))
+    launches.update(radiomics_path(device, rgb, masks))
+    rad_times = time_radiomics(device, rgb, masks)
+    print(f"wall {time.perf_counter() - t_start:.1f} s")
+
     med, bound, b_bytes, b_ops = warp_times[BATCH]
     totals["affine_warp_batch"] = [med["kernel"], med["plain"], bound, b_bytes,
                                    b_ops]
     library = {"affine_warp_batch": med["grid_sample"]}
+    for name, (ker, pln, bnd, bb, bo, lib) in rad_times.items():
+        totals[name] = [ker, pln, bnd, bb, bo]
+        library[name] = lib
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -814,7 +1179,7 @@ def main() -> int:
                       else "operations"),
          "library_ms": library.get(name)}
         for name in ("expand_dw_silu_pool", "dw_silu_pool",
-                     "affine_warp_batch")]}))
+                     "affine_warp_batch") + RAD_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

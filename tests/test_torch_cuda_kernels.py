@@ -14,7 +14,11 @@ import pytest
 import torch
 
 from multimodal_isic_tpu_torch.ops import affine_warp as aw
+from multimodal_isic_tpu_torch.ops import connected_components as cc
 from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
+from multimodal_isic_tpu_torch.ops import glcm
+from multimodal_isic_tpu_torch.ops import glrlm_runs as runs
+from multimodal_isic_tpu_torch.ops import histogram as hist
 
 pytestmark = pytest.mark.cuda
 
@@ -157,3 +161,105 @@ def test_warp_kernel_rejects_what_it_cannot_take(cuda):
         aw.affine_warp_batch(imgs.transpose(1, 2), inv, (8, 8))
     with pytest.raises(ValueError):  # inv on another device
         aw.affine_warp_batch(imgs, inv.cpu(), (8, 8))
+
+
+# ----------------------------------------------------- radiomics kernels
+# All four compute integers: each must equal its plain version bit for bit.
+
+def _maps(g, m, h, w, vmax, device):
+    """[m, h, w] int32 levels 1..vmax inside an ROI (one map with an empty
+    mask, one full frame, the rest random), 0 outside; the mask as bool."""
+    lv = torch.randint(1, vmax + 1, (m, h, w), generator=g, device=device,
+                       dtype=torch.int32)
+    inside = torch.rand(m, h, w, generator=g, device=device) < 0.8
+    inside[0] = False
+    if m > 1:
+        inside[1] = True
+    return torch.where(inside, lv, 0), inside
+
+
+RADIOMICS_SIZES = [(4, 14, 13), (3, 45, 60), (3, 40, 129), (2, 1, 7),
+                   (2, 7, 1), (3, 450, 600)]
+
+
+@pytest.mark.parametrize("m,h,w", RADIOMICS_SIZES)
+@pytest.mark.parametrize("vmax", [3, 64])
+def test_glcm_kernel_matches_plain(cuda, m, h, w, vmax):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    lv, inside = _maps(g, m, h, w, vmax, cuda)
+    before = glcm.glcm_matrices.launches
+    got = glcm.glcm_matrices(lv, inside.to(torch.uint8) * 255)
+    torch.cuda.synchronize()
+    assert glcm.glcm_matrices.launches == before + 1
+    assert torch.equal(got, glcm.glcm_matrices_reference(lv, inside))
+
+
+@pytest.mark.parametrize("m,h,w", RADIOMICS_SIZES)
+@pytest.mark.parametrize("vmax", [2, 64])
+def test_glrlm_runs_kernel_matches_plain(cuda, m, h, w, vmax):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    lv, inside = _maps(g, m, h, w, vmax, cuda)
+    before = runs.glrlm_runs.launches
+    got = runs.glrlm_runs(lv, inside)
+    torch.cuda.synchronize()
+    assert runs.glrlm_runs.launches == before + 1
+    assert torch.equal(got, runs.glrlm_runs_reference(lv, inside))
+
+
+@pytest.mark.parametrize("rows,n,na,nb,offset", [(3, 5000, 9, 29, 0),
+                                                 (5, 3001, 64, 640, 0),
+                                                 (8, 270000, 64, 640, 0),
+                                                 (4, 4096, 64, 640, 1)])
+def test_joint_histogram_kernel_matches_plain(cuda, rows, n, na, nb, offset):
+    """Codes beyond na / nb and 0 are skipped; ``offset`` makes the rows
+    start off a 16-byte boundary (the scalar-load path)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    a = torch.randint(0, na + 3, (rows * n + offset,), generator=g,
+                      device=cuda, dtype=torch.int32)[offset:].view(rows, n)
+    b = torch.randint(0, nb + 5, (rows * n + offset,), generator=g,
+                      device=cuda, dtype=torch.int32)[offset:].view(rows, n)
+    before = hist.joint_histogram.launches
+    got = hist.joint_histogram(a, b, na, nb)
+    torch.cuda.synchronize()
+    assert hist.joint_histogram.launches == before + 1
+    assert torch.equal(got, hist.joint_histogram_reference(a, b, na, nb))
+    assert torch.equal(got, hist.library_joint_histogram(a, b, na, nb))
+
+
+def test_joint_histogram_kernel_rejects_what_it_cannot_take(cuda):
+    a = torch.ones(2, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # 250 x 250 int32 > one block's smem
+        hist.joint_histogram(a, a, 250, 250)
+    with pytest.raises(ValueError):  # not contiguous
+        hist.joint_histogram(a.t(), a.t(), 4, 4)
+
+
+def _serpentine(h, w, device):
+    lv = torch.full((h, w), 2, dtype=torch.int32)
+    snake = torch.zeros((h, w), dtype=torch.bool)
+    snake[0::2] = True
+    for r in range(1, h, 2):
+        snake[r, w - 1 if (r // 2) % 2 == 0 else 0] = True
+    lv[snake] = 7
+    return lv[None].to(device), snake[None].to(device)
+
+
+@pytest.mark.parametrize("m,h,w", RADIOMICS_SIZES)
+@pytest.mark.parametrize("vmax", [2, 64])
+def test_cc_kernel_matches_plain(cuda, m, h, w, vmax):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    lv, inside = _maps(g, m, h, w, vmax, cuda)
+    before = cc.connected_components.launches
+    got = cc.connected_components(lv, inside)
+    torch.cuda.synchronize()
+    assert cc.connected_components.launches == before + 1
+    assert torch.equal(got, cc.connected_components_reference(lv, inside))
+
+
+@pytest.mark.parametrize("h,w", [(40, 41), (450, 600)])
+def test_cc_kernel_serpentine_is_one_zone(cuda, h, w):
+    lv, snake = _serpentine(h, w, cuda)
+    inside = torch.ones_like(snake)
+    got = cc.connected_components(lv, inside)
+    assert torch.equal(got, cc.connected_components_reference(lv, inside))
+    assert got[snake].unique().numel() == 1 and int(got[snake][0]) == 0

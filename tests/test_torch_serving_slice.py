@@ -192,10 +192,13 @@ def test_port_imports_no_jax_or_missing_packages():
         "'pandas', 'yaml', 'triton') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "want = {'core.rng', 'core.splits', 'core.early_stopping', "
-        "'core.checkpoint', 'data.pipeline', 'ops.affine_warp'}\n"
+        "'core.checkpoint', 'data.pipeline', 'ops.affine_warp', "
+        "'ops.glcm', 'ops.glrlm_runs', 'ops.histogram', "
+        "'ops.connected_components', 'ops.texture', 'ops.texture_extra', "
+        "'ops.filters', 'analysis.radiomics'}\n"
         "missing = want - {n.split('.', 1)[1] for n in names}\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 24, names\n"
+        "assert len(names) >= 33, names\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
