@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training and radiomics slices on
-one CUDA card.
+"""Smoke run of the PyTorch port's serving, training, radiomics and ConvMAE
+slices on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -47,7 +47,22 @@ width with random weights from a seed:
    ``RAD_TOL``) and two small crops on the CPU; times each kernel against
    its plain version and ``torch.bincount`` where one call computes the same
    counts, extraction img/s on both paths, peak memory, and a profile of
-   one chunk by kernel family.
+   one chunk by kernel family;
+10. ConvMAE (ConvViT-Base: dims 256/384/768, depths 2/2/11, 12 heads, full
+   width and depth, seeded random weights): holds the fused LN-MLP,
+   attention and fused-front kernels against their plain versions at every
+   geometry of the two paths; extracts latents of 256 rendered lesions
+   (450² centroid crops, a depth cut of HAM10000's 10,015) in bf16 batches
+   of 128 through ``mae_eval_batch`` → encoder → bundles → patch tables →
+   patch moments → PCA(0.90), with 4 fused LN-MLP launches a forward, then
+   on the plain path and with attention and the front kernel on (11 + 4
+   more launches a forward), each within ``LATENT_TOL`` of the other; runs
+   the masked validation forward (decoder 512 × 8, bs 16 float32, mask
+   0.75, norm-pix loss) with all three kernels and with none on one set of
+   masking draws; times each kernel against its plain version, bound and
+   (attention) ``F.scaled_dot_product_attention``, the encoder's img/s on
+   the three configurations, the validation forward, peak memory and
+   profiles.
 
 Float32 on the card runs in full float32 here: TF32 is off for cuDNN and
 cuBLAS throughout (``torch.backends.cudnn.allow_tf32 = False``).
@@ -84,6 +99,11 @@ RAD_N = 32                # rendered 450×600 samples (HAM10000 holds 10,015)
 RAD_CHUNK = 16            # images per chunk, cli/extract_radiomics.py:24
 RAD_CHECK_TYPES = ("original", "log-sigma-3-0-mm-3D", "wavelet-HH")
 NG, MAX_LEN = 64, 640     # gray levels; glrlm_max_len
+LAT_N = 256               # rendered lesions for latents (HAM10000: 10,015)
+LAT_BATCH = 128           # cli/save_latent.py:61
+VAL_BATCH = 16            # configs/config.yml batch_size, MAE validation
+MASK_RATIO = 0.75         # configs/config.yml eval_masking_ratio
+MAE_KERNELS = ("fused_ln_mlp", "flash_attention", "fused_front")
 SOURCE = {"dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
           "expand_dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
           "affine_warp_batch": "multimodal_isic_tpu_torch/csrc/affine_warp.cu",
@@ -91,19 +111,32 @@ SOURCE = {"dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
           "glrlm_runs": "multimodal_isic_tpu_torch/csrc/glrlm_runs.cu",
           "joint_histogram": "multimodal_isic_tpu_torch/csrc/histogram.cu",
           "connected_components":
-              "multimodal_isic_tpu_torch/csrc/connected_components.cu"}
+              "multimodal_isic_tpu_torch/csrc/connected_components.cu",
+          "fused_ln_mlp": "multimodal_isic_tpu_torch/csrc/fused_ln_mlp.cu",
+          "flash_attention": "multimodal_isic_tpu_torch/csrc/flash_attention.cu",
+          "fused_front": "multimodal_isic_tpu_torch/csrc/fused_front.cu"}
 REPLACES = {"dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:272",
             "expand_dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:326",
             "affine_warp_batch": "multimodal_isic_tpu/ops/pallas_warp.py:190",
             "glcm_matrices": "multimodal_isic_tpu/ops/pallas_glcm.py:95",
             "glrlm_runs": "multimodal_isic_tpu/ops/pallas_glrlm.py:105",
             "joint_histogram": "multimodal_isic_tpu/ops/pallas_hist.py:81",
-            "connected_components": "multimodal_isic_tpu/ops/pallas_cc.py:148"}
+            "connected_components": "multimodal_isic_tpu/ops/pallas_cc.py:148",
+            "fused_ln_mlp": "multimodal_isic_tpu/ops/fused_mlp.py:196",
+            "flash_attention": "multimodal_isic_tpu/ops/attention.py:93",
+            "fused_front": "multimodal_isic_tpu/ops/fused_convblock.py:146"}
 RAD_KERNELS = ("glcm_matrices", "glrlm_runs", "joint_histogram",
                "connected_components")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
 # and float32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+
+
+def ops_ms(bf16: float = 0.0, f32: float = 0.0) -> float:
+    """Least time of a call's operations: ``bf16`` FLOP of products of bf16
+    operands (tensor cores) and ``f32`` FLOP of float32 work (CUDA cores).
+    The two pipes run side by side, so the slower one bounds the call."""
+    return max(bf16 / BF16_FLOPS, f32 / F32_FLOPS) * 1e3
 
 # Kernel vs plain: |err| <= atol + rtol * |plain|.
 #  float32: the same f32 arithmetic in another order (cuBLAS/cuDNN vs the
@@ -139,6 +172,14 @@ RAD_TOL = dict(rtol=1e-5, atol=1e-6)
 # CUDA's and the CPU's exp/log and reduction orders round differently; the
 # tight comparison with the JAX package is in the CPU tests.
 RAD_CPU_TOL = dict(rtol=1e-3, atol=1e-3)
+# bf16 latents (|latent| up to ~4), kernel path vs plain path and flash +
+# front vs the kernel path: the paths round at different points (the fused
+# blocks add biases before rounding, flax's Conv after) and the flips carry
+# through 15 blocks.  At full width on the CPU (plain versions, bs 2) the
+# gaps were 0.9% relative RMS and 0.086 max: allow three times that.
+LATENT_TOL = {"max_abs": 0.25, "rel_rms": 0.03}
+# float32 validation losses (~2), all kernels vs none: summation order only.
+VAL_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def serving_geometries(name: str = "efficientnet-b3", size: int = IMG):
@@ -291,7 +332,7 @@ def fused_bound_ms(geo, bsz=BATCH, esz=2):
               + n_bias * 4 + bsz * cmid * 4)
     expand = 2 * px * cin * cmid if kind == "expand" else 0
     taps = 2 * k * k * px * cmid
-    return nbytes / HBM_BPS * 1e3, (expand / BF16_FLOPS + taps / F32_FLOPS) * 1e3
+    return nbytes / HBM_BPS * 1e3, ops_ms(bf16=expand, f32=taps)
 
 
 def warp_bound_ms(bsz, h, w, c, out_hw):
@@ -558,6 +599,9 @@ def learning_evidence(device, train_ds):
 
 
 KERNEL_FAMILIES = (  # (label, substrings of the kernel name), first match
+    ("fused LN-MLP kernel", ("fused_ln_mlp",)),
+    ("attention kernel", ("flash_attention",)),
+    ("fused front kernel", ("fused_front",)),
     ("warp kernel", ("affine_warp",)),
     ("GLCM kernel", ("glcm_counts",)),
     ("GLRLM runs kernels", ("runs_rows", "runs_lines")),
@@ -569,6 +613,7 @@ KERNEL_FAMILIES = (  # (label, substrings of the kernel name), first match
     ("convolutions and GEMMs", ("conv", "gemm", "xmma", "cutlass", "sm90",
                                 "wgrad", "dgrad")),
     ("batch norm", ("batch_norm", "bn_")),
+    ("softmax", ("softmax",)),
     ("reductions", ("reduce",)),
     ("gathers, copies, pads", ("index", "gather", "copy", "cat", "pad",
                                "flip")),
@@ -974,6 +1019,422 @@ def time_radiomics(device, rgb, masks):
     return out
 
 
+# ------------------------------------------------------------------- ConvMAE
+
+def mae_samples(n: int = LAT_N, seed: int = SEED + 20):
+    """n rendered 450×600 lesions, centroid-cropped to 450² (uint8 RGB) with
+    their masks."""
+    from multimodal_isic_tpu_torch.data.crop import centroid_crop
+    from multimodal_isic_tpu_torch.data.synthetic import (DX_CLASSES,
+                                                          _render_sample)
+    rng = np.random.RandomState(seed)
+    crops, masks = [], []
+    for i in range(n):
+        crop, mask = centroid_crop(*_render_sample(rng, *SRC_HW,
+                                                   i % len(DX_CLASSES)))
+        crops.append(crop)
+        masks.append(mask)
+    return np.stack(crops), np.stack(masks), np.arange(n) % len(DX_CLASSES)
+
+
+def _mae_ops():
+    from multimodal_isic_tpu_torch.ops import attention as A
+    from multimodal_isic_tpu_torch.ops import fused_convblock as FC
+    from multimodal_isic_tpu_torch.ops import fused_mlp as FM
+    return {"fused_ln_mlp": FM, "flash_attention": A, "fused_front": FC}
+
+
+def _mae_fns():
+    """name → (kernel wrapper, plain version)."""
+    return {name: (getattr(mod, name), getattr(mod, f"{name}_reference"))
+            for name, mod in _mae_ops().items()}
+
+
+def _mae_tol():
+    """name → dtype → (atol, rtol) of kernel vs plain: the ops modules'
+    ``TOL`` tables, which the card tests use too."""
+    return {name: mod.TOL for name, mod in _mae_ops().items()}
+
+
+def _mae_launches():
+    return {name: fn.launches for name, (fn, _) in _mae_fns().items()}
+
+
+def _reset_mae_launches():
+    for fn, _ in _mae_fns().values():
+        fn.launches = 0
+
+
+def _mae_inputs(name, geo, dtype, device, g):
+    """Arguments as the ConvMAE blocks pass them, at one geometry:
+    fused_ln_mlp (B, H, C), flash_attention (B, heads, N, D),
+    fused_front (B, H, C, with_keep)."""
+    rn = lambda *s: torch.randn(*s, generator=g, device=device)
+    if name == "flash_attention":
+        b, h, n, d = geo
+        qkv = (rn(b, n, 3, h, d) * 1.5).to(dtype)  # views of the projection
+        return tuple(t.transpose(1, 2) for t in qkv.unbind(2))
+    b, hw, c = geo[:3]
+    f = 4 * c if name == "fused_ln_mlp" else c
+    x = (rn(b, hw, hw, c) * 2 + 0.5).to(dtype)
+    ls, lb = 1 + 0.1 * rn(c), 0.1 * rn(c)
+    w1, b1 = (rn(c, f) / math.sqrt(c)).to(dtype), (0.1 * rn(f)).to(dtype)
+    w2, b2 = (rn(f, c) / math.sqrt(f)).to(dtype), (0.1 * rn(c)).to(dtype)
+    if name == "fused_ln_mlp":
+        return (x.reshape(-1, c), ls, lb, w1, b1, w2, b2)
+    wd, bd = (rn(5, 5, c) / 5).to(dtype), (0.1 * rn(c)).to(dtype)
+    keep = None
+    if geo[3]:  # the 0.75 mask at the 14² grid, upsampled to the stage grid
+        keep = (torch.rand(b, 14, 14, 1, generator=g, device=device) > 0.75)
+        keep = keep.repeat_interleave(hw // 14, 1).repeat_interleave(
+            hw // 14, 2).to(dtype)
+    return (x, ls.to(dtype), lb.to(dtype), w1, b1, wd, bd, w2, b2, keep)
+
+
+def mae_geometries():
+    """(kernel, dtype, geometry) of every call the two ConvMAE paths make:
+    latent extraction at bs 128 bf16 (encoder N 196), the validation
+    forward at bs 16 float32 (encoder N 49 at mask 0.75, decoder D 32, the
+    conv stages with ``keep``)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    lb, vb = LAT_BATCH, VAL_BATCH
+    return [("fused_ln_mlp", bf, (lb, 56, 256)), ("fused_ln_mlp", bf, (lb, 28, 384)),
+            ("fused_ln_mlp", f32, (vb, 56, 256)), ("fused_ln_mlp", f32, (vb, 28, 384)),
+            ("flash_attention", bf, (lb, 12, 196, 64)),
+            ("flash_attention", f32, (vb, 12, 49, 64)),
+            ("flash_attention", f32, (vb, 16, 196, 32)),
+            ("fused_front", bf, (lb, 56, 256, False)),
+            ("fused_front", bf, (lb, 28, 384, False)),
+            ("fused_front", f32, (vb, 56, 256, True)),
+            ("fused_front", f32, (vb, 28, 384, True)),
+            ("fused_front", f32, (vb, 56, 256, False))]
+
+
+def check_mae_kernels(device):
+    """Each ConvMAE kernel against its plain version at every geometry of
+    the slice → worst max |kernel − plain| per kernel."""
+    fns, tol = _mae_fns(), _mae_tol()
+    g = torch.Generator(device=device).manual_seed(SEED + 21)
+    print("ConvMAE kernel vs plain tolerance, |err| <= atol + rtol*|plain|, "
+          "(atol, rtol): " + "; ".join(
+              f"{k} {str(dt)[6:]} {t}" for k, v in tol.items()
+              for dt, t in v.items()))
+    worst = {name: 0.0 for name in MAE_KERNELS}
+    failures = []
+    for name, dtype, geo in mae_geometries():
+        args = _mae_inputs(name, geo, dtype, device, g)
+        fn, ref = fns[name]
+        got = fn(*args)
+        want = ref(*args)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == dtype
+        err, ok = _allclose_err(got, want, *tol[name][dtype])
+        worst[name] = max(worst[name], err)
+        label = f"{name} {geo} {str(dtype)[6:]}"
+        print(f"check {label}: max_abs_err {err:.3e} ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            failures.append(label)
+        del args, got, want
+    if failures:
+        raise AssertionError(f"ConvMAE kernels vs plain: {failures}")
+    return worst
+
+
+def mae_models(device, seed, **cfg):
+    """ConvMAE models with one set of seeded random weights, one per flag
+    set in ``cfg['variants']`` (name → flags)."""
+    from multimodal_isic_tpu_torch.core.rng import generator
+    from multimodal_isic_tpu_torch.models.convmae import ConvMAE, build_convmae
+    variants = cfg.pop("variants")
+    first = None
+    out = {}
+    for name, flags in variants.items():
+        if first is None:
+            out[name] = first = build_convmae(generator(seed, device),
+                                              **cfg, **flags)
+            continue
+        with torch.device("meta"):
+            model = ConvMAE(**cfg, **flags)
+        model.to_empty(device=device).load_state_dict(first.state_dict())
+        out[name] = model
+    return {k: m.eval() for k, m in out.items()}
+
+
+LAT_VARIANTS = {"kernel": dict(use_fused_mlp=True),
+                "plain": dict(use_fused_mlp=False),
+                "flash+front": dict(use_fused_mlp=True,
+                                    use_flash_attention=True,
+                                    use_fused_front=True)}
+ALL_FLAGS = dict(use_fused_mlp=True, use_flash_attention=True,
+                 use_fused_front=True)
+
+
+def _latent_err(got, want):
+    """(max |err|, relative RMS error) of two latent tensors."""
+    e = (got.float() - want.float())
+    return (float(e.abs().max()),
+            float(e.pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt()))
+
+
+def latent_path(device, crops, masks, targets):
+    """Latent extraction at ConvViT-Base width, bs 128 bf16: uint8 crops →
+    ``mae_eval_batch`` → encoder → bundles → patch tables → patch moments →
+    PCA(0.90), on the usual kernel path (fused LN-MLP), then the plain path
+    and the flash + front configuration on the same weights and images."""
+    from multimodal_isic_tpu_torch.analysis.latent_pipeline import (
+        extract_latent_bundle, extract_latents)
+    from multimodal_isic_tpu_torch.analysis.latents import concat_patch_moments
+    from multimodal_isic_tpu_torch.data.augment import mae_eval_batch
+    models = mae_models(device, SEED + 22, with_decoder=False,
+                        dtype=torch.bfloat16, variants=LAT_VARIANTS)
+    imgs = torch.from_numpy(crops).to(device)
+    msks = torch.from_numpy(masks).to(device)
+    tgts = torch.from_numpy(targets).to(device)
+    half = len(crops) // 2
+
+    def loader(lo, hi):
+        for s in range(lo, hi, LAT_BATCH):
+            img, msk = mae_eval_batch(imgs[s:s + LAT_BATCH],
+                                      msks[s:s + LAT_BATCH])
+            yield {"image": img, "mask": msk, "target": tgts[s:s + LAT_BATCH]}
+
+    n_fw = -(-half // LAT_BATCH) + -(-(len(crops) - half) // LAT_BATCH)
+    extract_latent_bundle(models["kernel"], loader(0, LAT_BATCH))  # warm-up
+    torch.cuda.synchronize()
+    _reset_mae_launches()
+    t0 = time.perf_counter()
+    tr, te, b_tr, b_te, pca = extract_latents(
+        models["kernel"], loader(0, half), loader(half, len(crops)),
+        pca_enabled=True)
+    moments = concat_patch_moments(torch.cat([b_tr.latents, b_te.latents]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _mae_launches()
+    print(f"latents: {len(crops)} rendered {SRC_HW[0]}x{SRC_HW[1]} lesions "
+          f"(450² crops) in batches of {LAT_BATCH}, bf16 kernel path: train "
+          f"{tuple(b_tr.latents.shape)}, test {tuple(b_te.latents.shape)}, "
+          f"{int(tr['patch_in_mask'].sum())} + {int(te['patch_in_mask'].sum())}"
+          f" lesion patches, moments {tuple(moments.shape)}, PCA(0.90) keeps "
+          f"{pca.components.shape[0]} of 768 components; {wall:.2f} s; "
+          f"launches {launches} over {n_fw} forwards")
+    want = {"fused_ln_mlp": 4 * n_fw, "flash_attention": 0, "fused_front": 0}
+    if launches != want:
+        raise AssertionError(f"latent launches {launches} != {want}")
+    lat = torch.cat([b_tr.latents, b_te.latents])
+    if lat.shape != (len(crops), 196, 768) or tr["patch_latent_pca"].shape[1] \
+            != pca.components.shape[0]:
+        raise AssertionError(f"latent shapes {tuple(lat.shape)}")
+    for name, t in (("latents", lat), ("moments", moments),
+                    ("pca", tr["patch_latent_pca"])):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite {name}")
+
+    def run(model):
+        return torch.cat([extract_latent_bundle(model, loader(0, half)).latents,
+                          extract_latent_bundle(
+                              model, loader(half, len(crops))).latents])
+
+    plain = run(models["plain"])
+    _reset_mae_launches()
+    flash_front = run(models["flash+front"])
+    launches_ff = _mae_launches()
+    want_ff = {"fused_ln_mlp": 4 * n_fw, "flash_attention": 11 * n_fw,
+               "fused_front": 4 * n_fw}
+    print(f"latents, flash + front configuration: launches {launches_ff} over "
+          f"{n_fw} forwards")
+    if launches_ff != want_ff:
+        raise AssertionError(f"flash+front launches {launches_ff} != {want_ff}")
+    for label, got, ref in (("kernel path vs plain path", lat, plain),
+                            ("flash + front vs kernel path", flash_front, lat)):
+        mx, rel = _latent_err(got, ref)
+        ok = mx <= LATENT_TOL["max_abs"] and rel <= LATENT_TOL["rel_rms"]
+        print(f"latents {label}: max_abs_err {mx:.4f}, relative RMS "
+              f"{rel:.5f} (|latent| max {float(ref.abs().max()):.3f}; "
+              f"tolerance {LATENT_TOL}) ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            raise AssertionError(f"latents {label} out of tolerance")
+    del models
+    return launches_ff
+
+
+def mae_validation(device, crops, masks):
+    """The masked validation forward: the full model with its decoder in
+    float32 at bs 16, mask 0.75, norm-pix loss, all three kernels on and
+    all off, on one set of masking draws."""
+    from multimodal_isic_tpu_torch.core.rng import generator
+    from multimodal_isic_tpu_torch.data.augment import mae_eval_batch
+    from multimodal_isic_tpu_torch.train.mae import (
+        make_mae_eval_persample_step, make_mae_eval_step)
+    models = mae_models(device, SEED + 23, norm_pix_loss=True,
+                        variants={"kernel": ALL_FLAGS, "plain": {}})
+    imgs, _ = mae_eval_batch(torch.from_numpy(crops[:VAL_BATCH]).to(device),
+                             torch.from_numpy(masks[:VAL_BATCH]).to(device))
+    draws = models["kernel"].masking(VAL_BATCH, MASK_RATIO,
+                                     generator(SEED + 24, device))
+    out = {}
+    for name, model in models.items():
+        _reset_mae_launches()
+        loss = make_mae_eval_step(model, MASK_RATIO)(imgs, masking=draws)
+        per = make_mae_eval_persample_step(model, MASK_RATIO)(imgs,
+                                                              masking=draws)
+        out[name] = (float(loss), per.cpu(), _mae_launches())
+    loss, per, launches = out["kernel"]
+    print(f"MAE validation forward, bs {VAL_BATCH} f32, mask {MASK_RATIO}, "
+          f"norm-pix: kernel path loss {loss:.6f}, plain path "
+          f"{out['plain'][0]:.6f}; per-sample mean {float(per.mean()):.6f}; "
+          f"kernel launches {launches} over 2 forwards (scalar and "
+          f"per-sample steps)")
+    want = {"fused_ln_mlp": 8, "flash_attention": 2 * (11 + 8),
+            "fused_front": 8}
+    if launches != want:
+        raise AssertionError(f"validation launches {launches} != {want}")
+    if not (math.isfinite(loss) and bool(torch.isfinite(per).all())):
+        raise AssertionError("non-finite validation loss")
+    if abs(float(per.mean()) - loss) > 1e-5 * abs(loss):
+        raise AssertionError("scalar loss != mean of per-sample losses")
+    err = float((per - out["plain"][1]).abs().max())
+    print(f"validation kernel vs plain: |loss diff| "
+          f"{abs(loss - out['plain'][0]):.3e}, per-sample max_abs_err "
+          f"{err:.3e} (tolerance {VAL_TOL})")
+    torch.testing.assert_close(per, out["plain"][1], **VAL_TOL)
+    torch.testing.assert_close(torch.tensor(loss),
+                               torch.tensor(out["plain"][0]), **VAL_TOL)
+    return imgs, draws
+
+
+def mae_bound_ms(name, dtype, geo):
+    """(bytes ms, operations ms) of one call: inputs read once, outputs
+    written once; each product at the card's rate for its operands' type
+    (:func:`ops_ms`): products of bf16 operands on the tensor cores, float32
+    products (TF32 off), the depthwise taps and attention's p·v (p is
+    float32) on the CUDA cores."""
+    bf = dtype == torch.bfloat16
+    esz = 2 if bf else 4
+    if name == "flash_attention":
+        b, h, n, d = geo
+        qk = pv = 2 * b * h * n * n * d
+        return (4 * b * h * n * d * esz / HBM_BPS * 1e3,
+                ops_ms(bf16=qk, f32=pv) if bf else ops_ms(f32=qk + pv))
+    b, hw, c = geo[:3]
+    m = b * hw * hw
+    if name == "fused_ln_mlp":
+        f = 4 * c
+        nbytes = 2 * m * c * esz + 2 * c * f * esz + (3 * c + f) * 4
+        mm = 4 * m * c * f
+        return (nbytes / HBM_BPS * 1e3,
+                ops_ms(bf16=mm) if bf else ops_ms(f32=mm))
+    nbytes = (2 * m * c * esz + 2 * c * c * esz + 30 * c * 4
+              + (m * 4 if geo[3] else 0))
+    mm, taps = 4 * m * c * c, 2 * 25 * m * c
+    return (nbytes / HBM_BPS * 1e3,
+            ops_ms(bf16=mm, f32=taps) if bf else ops_ms(f32=mm + taps))
+
+
+def time_mae(device, crops, masks, val_imgs, val_draws):
+    """Each ConvMAE kernel against its plain version (and attention against
+    ``F.scaled_dot_product_attention``) at the bs 128 bf16 extraction
+    shapes; encoder img/s at bs 128 bf16 on the kernel, plain and
+    flash + front paths; the validation forward at bs 16 float32; peak
+    memory and profiles.  → per kernel (ms, plain ms, bound ms, bytes ms,
+    operations ms, library ms) per forward."""
+    import torch.nn.functional as F
+    from multimodal_isic_tpu_torch.data.augment import mae_eval_batch
+    from multimodal_isic_tpu_torch.train.mae import (make_encoder_step,
+                                                     make_mae_eval_step)
+    from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
+    fns = _mae_fns()
+    g = torch.Generator(device=device).manual_seed(SEED + 25)
+    per_fw = {"fused_ln_mlp": [((LAT_BATCH, 56, 256), 2), ((LAT_BATCH, 28, 384), 2)],
+              "flash_attention": [((LAT_BATCH, 12, 196, 64), 11)],
+              "fused_front": [((LAT_BATCH, 56, 256, False), 2),
+                              ((LAT_BATCH, 28, 384, False), 2)]}
+    out = {}
+    for name, geos in per_fw.items():
+        kern, ref = fns[name]
+        tot = [0.0] * 5 + [None]
+        for geo, calls in geos:
+            args = _mae_inputs(name, geo, torch.bfloat16, device, g)
+            runs = {"kernel": [], "plain": [], "library": []}
+            order = ["plain", "kernel", "kernel", "plain"]
+            lib_fn = None
+            if name == "flash_attention":
+                qf, kf, vf = (t.float().contiguous() for t in args)
+                lib_fn = lambda: F.scaled_dot_product_attention(qf, kf, vf)
+                order += ["library", "library"]
+            for which in order:
+                fn = {"kernel": lambda: kern(*args),
+                      "plain": lambda: ref(*args), "library": lib_fn}[which]
+                iters = 10 if which == "kernel" else 3
+                runs[which].append(timeit_closed(fn, iters=iters, repeats=3))
+            med = {k: min(r["median"] for r in v) * 1e3
+                   for k, v in runs.items() if v}
+            b_bytes, b_ops = mae_bound_ms(name, torch.bfloat16, geo)
+            bound = max(b_bytes, b_ops)
+            lib = (f", SDPA on f32 copies {med['library']:.4f} ms"
+                   if "library" in med else "")
+            print(f"time {name} {geo} bf16: kernel {med['kernel']:.4f} ms, "
+                  f"plain {med['plain']:.4f} ms ({med['plain'] / med['kernel']:.2f}x)"
+                  f"{lib}; bound {bound:.4f} ms (bytes {b_bytes:.4f}, "
+                  f"operations {b_ops:.4f}): {bound / med['kernel']:.1%} of it;"
+                  f" {calls} calls a forward")
+            for i, v in enumerate((med["kernel"], med["plain"], bound,
+                                   b_bytes, b_ops)):
+                tot[i] += calls * v
+            if "library" in med:
+                tot[5] = (tot[5] or 0.0) + calls * med["library"]
+            del args
+        out[name] = tot
+
+    # encoder img/s, bs 128 bf16, the three configurations
+    models = mae_models(device, SEED + 22, with_decoder=False,
+                        dtype=torch.bfloat16, variants=LAT_VARIANTS)
+    img, _ = mae_eval_batch(torch.from_numpy(crops[:LAT_BATCH]).to(device),
+                            torch.from_numpy(masks[:LAT_BATCH]).to(device))
+    steps = {k: make_encoder_step(m) for k, m in models.items()}
+    runs = {k: [] for k in steps}
+    peak = {}
+    for name in ("plain", "kernel", "flash+front", "flash+front", "kernel",
+                 "plain"):
+        torch.cuda.reset_peak_memory_stats()
+        runs[name].append(timeit_closed(lambda: steps[name](img), iters=5,
+                                        repeats=3))
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    for name, r in runs.items():
+        med = float(np.median([x["median"] for x in r]))
+        best = min(x["best"] for x in r)
+        print(f"encoder bs{LAT_BATCH} bf16 ({name} path): "
+              f"{LAT_BATCH / med:.1f} img/s (median, best "
+              f"{LAT_BATCH / best:.1f}); {med * 1e3:.2f} ms a forward; peak "
+              f"device memory {peak[name]:.2f} GiB")
+    profile_steps(lambda: steps["kernel"](img), f"encoder bs{LAT_BATCH} bf16 "
+                  "kernel path")
+    profile_steps(lambda: steps["flash+front"](img), f"encoder bs{LAT_BATCH} "
+                  "bf16 flash+front path")
+    del models, steps
+
+    # the validation forward, bs 16 float32
+    models = mae_models(device, SEED + 23, norm_pix_loss=True,
+                        variants={"kernel": ALL_FLAGS, "plain": {}})
+    steps = {k: make_mae_eval_step(m, MASK_RATIO) for k, m in models.items()}
+    runs = {k: [] for k in steps}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        torch.cuda.reset_peak_memory_stats()
+        runs[name].append(timeit_closed(
+            lambda: steps[name](val_imgs, masking=val_draws), iters=5,
+            repeats=3))
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    for name, r in runs.items():
+        med = float(np.median([x["median"] for x in r]))
+        print(f"MAE validation forward bs{VAL_BATCH} f32 ({name} path): "
+              f"{med * 1e3:.2f} ms a batch, {VAL_BATCH / med:.1f} img/s; peak "
+              f"device memory {peak[name]:.2f} GiB")
+    profile_steps(lambda: steps["kernel"](val_imgs, masking=val_draws),
+                  f"MAE validation bs{VAL_BATCH} f32 kernel path")
+    del models, steps
+    torch.cuda.empty_cache()
+    return out
+
+
 def to_device_batch(reqs, device, sl=slice(None)):
     return {k: torch.from_numpy(np.ascontiguousarray(v[sl])).to(device)
             for k, v in reqs.items()}
@@ -987,7 +1448,9 @@ def main() -> int:
     from multimodal_isic_tpu_torch.data.augment import preprocess_eval_batch
     from multimodal_isic_tpu_torch.ops import _build
     from multimodal_isic_tpu_torch.ops import affine_warp as aw
+    from multimodal_isic_tpu_torch.ops import attention
     from multimodal_isic_tpu_torch.ops import connected_components as cc
+    from multimodal_isic_tpu_torch.ops import fused_convblock, fused_mlp
     from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
     from multimodal_isic_tpu_torch.ops import glcm, glrlm_runs, histogram
     from multimodal_isic_tpu_torch.train.fusion import (evaluate_test,
@@ -1013,7 +1476,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = {"fused_dwconv": fd._lib, "affine_warp": aw._lib,
             "glcm": glcm._lib, "glrlm_runs": glrlm_runs._lib,
-            "histogram": histogram._lib, "connected_components": cc._lib}
+            "histogram": histogram._lib, "connected_components": cc._lib,
+            "fused_ln_mlp": fused_mlp._lib, "flash_attention": attention._lib,
+            "fused_front": fused_convblock._lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda load: load(), libs.values()))
     print(f"build: {len(libs)} kernel libraries in "
@@ -1163,11 +1628,27 @@ def main() -> int:
     rad_times = time_radiomics(device, rgb, masks)
     print(f"wall {time.perf_counter() - t_start:.1f} s")
 
+    # 10. ConvMAE: kernels vs plain, latent extraction, the validation
+    # forward, times
+    del rgb, masks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    crops, mmasks, targets = mae_samples()
+    print(f"ConvMAE: rendered {len(crops)} samples in "
+          f"{time.perf_counter() - t0:.1f} s (depth cut: {len(crops)} images "
+          f"of HAM10000's 10,015)")
+    worst_err.update(check_mae_kernels(device))
+    launches.update(latent_path(device, crops, mmasks, targets))
+    val_imgs, val_draws = mae_validation(device, crops, mmasks)
+    mae_times = time_mae(device, crops, mmasks, val_imgs, val_draws)
+    print(f"wall {time.perf_counter() - t_start:.1f} s")
+
     med, bound, b_bytes, b_ops = warp_times[BATCH]
     totals["affine_warp_batch"] = [med["kernel"], med["plain"], bound, b_bytes,
                                    b_ops]
     library = {"affine_warp_batch": med["grid_sample"]}
-    for name, (ker, pln, bnd, bb, bo, lib) in rad_times.items():
+    for name, (ker, pln, bnd, bb, bo, lib) in (*rad_times.items(),
+                                               *mae_times.items()):
         totals[name] = [ker, pln, bnd, bb, bo]
         library[name] = lib
     print(json.dumps({"kernels": [
@@ -1179,7 +1660,7 @@ def main() -> int:
                       else "operations"),
          "library_ms": library.get(name)}
         for name in ("expand_dw_silu_pool", "dw_silu_pool",
-                     "affine_warp_batch") + RAD_KERNELS]}))
+                     "affine_warp_batch") + RAD_KERNELS + MAE_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,1 +1,2 @@
-"""Analysis workloads: radiomics extraction (in-memory arrays)."""
+"""Analysis workloads: radiomics extraction (in-memory arrays), ConvMAE latent
+extraction with patch moments and PCA."""

@@ -1,14 +1,15 @@
 """Device-side preprocessing and the fusion train-time augmentations.
 
 Counterpart of ``multimodal_isic_tpu/data/augment.py`` (:22-116 eval
-preprocess, :132-283 geometric, :331-423 colour, :428-554 fusion policies;
-the MAE policies come with ConvMAE).
+preprocess, :132-283 geometric, :331-423 colour, :428-554 fusion policies,
+:457-479 the MAE eval policy; the MAE train policy comes with ConvMAE
+training).
 
 Eval preprocess: the separable half-pixel-centre bilinear resize
 (cv2.INTER_LINEAR, no antialias) written as two dense banded matmuls,
 ``A_h @ X @ A_wᵀ``, which cuBLAS runs on the tensor cores in bf16 for the
 serving path; in float32 it is the JAX ``resize_bilinear`` too, which the
-per-image policy uses.
+per-image policy uses (the fusion and MAE eval policies).
 
 Augmentations work on whole batches [B, H, W, C] (float32, 0..255) and are
 split in two, because ``jax.random`` and ``torch.Generator`` give different
@@ -398,6 +399,15 @@ def fusion_eval_batch(images: torch.Tensor, masks: torch.Tensor,
             resize_nearest(masks.float(), out_hw))
 
 
+def mae_eval_batch(images: torch.Tensor, masks: torch.Tensor,
+                   out_hw: Tuple[int, int] = (224, 224)):
+    """Reference MAE eval / latent-extraction policy (``train_ae.py:102-105``,
+    ``save_latent.py:26-30``; JAX ``augment.py:457-460,479``): uint8
+    images resized bilinearly and ImageNet-normalised in float32, masks
+    resized nearest, both to 224²."""
+    return fusion_eval_batch(images, masks, out_hw)
+
+
 def make_fusion_train_fast(out_hw: Tuple[int, int] = (380, 380)
                            ) -> Callable:
     """(images, masks, gen) → the fast policy, its draws from ``gen``.
@@ -417,5 +427,6 @@ def make_fusion_train_fast(out_hw: Tuple[int, int] = (380, 380)
 POLICIES = {
     "fusion_train": fusion_train_batch,
     "fusion_eval": fusion_eval_batch,
+    "mae_eval": mae_eval_batch,
     "fusion_train_fast": make_fusion_train_fast(),
 }

@@ -1,2 +1,2 @@
-"""Models: EfficientNet backbone, multimodal fusion net, weight conversion
-from the JAX package's parameters."""
+"""Models: EfficientNet backbone, multimodal fusion net, ConvMAE, weight
+conversion from the JAX package's parameters."""

@@ -9,7 +9,8 @@ with numpy and json alone.  A checkpoint the port wrote in the same layout
 state dict it holds.  Returns a state dict for
 ``models.efficientnet.EfficientNet`` or ``models.fusion.MultiModalFusionNet``
 (the port names its submodules after the flax tree; ``block_<i>`` becomes
-``blocks.<i>``).
+``blocks.<i>``), or, through :func:`convmae_state_dict`, for
+``models.convmae.ConvMAE`` (the upstream ConvMAE checkpoint naming).
 
 Leaf mappings:
 - Dense ``kernel`` [in, out] → ``weight`` [out, in];
@@ -101,3 +102,59 @@ def state_dict_from_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     if "params" not in tree:
         return flax_to_state_dict(tree)
     return flax_to_state_dict(tree["params"], tree.get("batch_stats"))
+
+
+# ----------------------------------------------------------------- ConvMAE
+
+_CBLOCK = {"LayerNorm_0": "norm1", "Conv_0": "conv1", "Conv_1": "attn",
+           "Conv_2": "conv2", "LayerNorm_1": "norm2", "Conv_3": "mlp.fc1",
+           "Conv_4": "mlp.fc2"}
+_VIT = {("LayerNorm_0",): "norm1", ("Attention_0", "Dense_0"): "attn.qkv",
+        ("Attention_0", "Dense_1"): "attn.proj", ("LayerNorm_1",): "norm2",
+        ("Mlp_0", "Dense_0"): "mlp.fc1", ("Mlp_0", "Dense_1"): "mlp.fc2"}
+_TOP = {"embed1": "patch_embed1.proj", "embed1_norm": "patch_embed1.norm",
+        "embed2": "patch_embed2.proj", "embed2_norm": "patch_embed2.norm",
+        "embed3": "patch_embed3.proj", "embed3_norm": "patch_embed3.norm",
+        "encoder_norm": "norm", "decoder_embed": "decoder_embed",
+        "decoder_norm": "decoder_norm", "decoder_pred": "decoder_pred"}
+
+
+def _convmae_module(path: Tuple[str, ...]) -> str:
+    """The flax module path of a JAX ConvMAE leaf → the port's (upstream
+    ConvMAE) module name."""
+    head = path[0]
+    m = re.match(r"^(stage1|stage2|vit|dec_blocks)_(\d+)$", head)
+    if m is None:
+        return _TOP[head]
+    kind, i = m.groups()
+    prefix = {"stage1": "blocks1", "stage2": "blocks2", "vit": "blocks3",
+              "dec_blocks": "decoder_blocks"}[kind]
+    if kind.startswith("stage"):
+        return f"{prefix}.{i}.{_CBLOCK[path[1]]}"
+    return f"{prefix}.{i}.{_VIT[tuple(path[1:])]}"
+
+
+def convmae_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``ConvMAE`` params (nested dicts of arrays) → the port's state
+    dict, in the upstream ConvMAE naming: the exact inverse of the JAX
+    ``models/convmae.py::port_torch_state_dict`` (conv HWIO → OIHW,
+    depthwise [5, 5, 1, C] → [C, 1, 5, 5], Dense [in, out] → [out, in],
+    LayerNorm scale → weight, ``pos_embed`` [N, D] → [1, N, D])."""
+    out = {}
+    for path, a in _leaves(params):
+        if path == ("pos_embed",):
+            key, a = "pos_embed", a[None]
+        elif path == ("mask_token",):
+            key = "mask_token"
+        else:
+            leaf = path[-1]
+            if leaf == "kernel":
+                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+                leaf = "weight"
+            elif leaf == "scale":
+                leaf = "weight"
+            elif leaf != "bias":
+                raise KeyError(f"unknown flax leaf {'/'.join(path)}")
+            key = f"{_convmae_module(path[:-1])}.{leaf}"
+        out[key] = torch.from_numpy(np.array(a, np.float32, order="C"))
+    return out

@@ -1,1 +1,2 @@
-"""Training and evaluation loops (eval side only so far)."""
+"""Training and evaluation loops: the fusion classifier, ConvMAE's forward
+steps (latent extraction, masked validation)."""

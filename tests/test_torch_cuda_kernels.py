@@ -14,8 +14,11 @@ import pytest
 import torch
 
 from multimodal_isic_tpu_torch.ops import affine_warp as aw
+from multimodal_isic_tpu_torch.ops import attention as attn
 from multimodal_isic_tpu_torch.ops import connected_components as cc
+from multimodal_isic_tpu_torch.ops import fused_convblock as fcb
 from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
+from multimodal_isic_tpu_torch.ops import fused_mlp as fm
 from multimodal_isic_tpu_torch.ops import glcm
 from multimodal_isic_tpu_torch.ops import glrlm_runs as runs
 from multimodal_isic_tpu_torch.ops import histogram as hist
@@ -263,3 +266,122 @@ def test_cc_kernel_serpentine_is_one_zone(cuda, h, w):
     got = cc.connected_components(lv, inside)
     assert torch.equal(got, cc.connected_components_reference(lv, inside))
     assert got[snake].unique().numel() == 1 and int(got[snake][0]) == 0
+
+
+# ---------------------------------------------------------------- ConvMAE
+# kernel vs plain tolerances: each ops module's ``TOL`` (chip_smoke.py holds
+# the kernels to the same tables)
+
+
+def _convblock_params(g, c, f, dtype, device):
+    """LN scale/shift, w1 [C, F], b1, w2 [F, C], b2 as the model passes
+    them: weights in ``dtype``, vectors rounded to it."""
+    ls = (1.0 + 0.1 * torch.randn(c, generator=g, device=device))
+    lb = 0.1 * torch.randn(c, generator=g, device=device)
+    w1 = (torch.randn(c, f, generator=g, device=device) / c ** 0.5).to(dtype)
+    b1 = (0.1 * torch.randn(f, generator=g, device=device)).to(dtype)
+    w2 = (torch.randn(f, c, generator=g, device=device) / f ** 0.5).to(dtype)
+    b2 = (0.1 * torch.randn(c, generator=g, device=device)).to(dtype)
+    return ls, lb, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c,f", [(300, 384, 512), (1000, 256, 1024),
+                                   (777, 384, 1536), (5, 256, 96)])
+def test_fused_ln_mlp_kernel_matches_plain(cuda, dtype, m, c, f):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(m, c, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    args = (x, *_convblock_params(g, c, f, dtype, cuda))
+    before = fm.fused_ln_mlp.launches
+    got = fm.fused_ln_mlp(*args)
+    assert fm.fused_ln_mlp.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (m, c)
+    _close(got, fm.fused_ln_mlp_reference(*args), fm.TOL[dtype])
+
+
+def test_fused_ln_mlp_kernel_rejects_what_it_cannot_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(8, 192, generator=g, device=cuda)
+    with pytest.raises(ValueError, match="C in"):
+        fm.fused_ln_mlp(x, *_convblock_params(g, 192, 768, torch.float32,
+                                              cuda))
+    x = torch.randn(8, 256, generator=g, device=cuda)
+    with pytest.raises(ValueError, match="multiple of"):
+        fm.fused_ln_mlp(x, *_convblock_params(g, 256, 100, torch.float32,
+                                              cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,n,d", [(2, 3, 196, 64), (3, 12, 49, 64),
+                                     (2, 16, 196, 32), (1, 2, 1, 64),
+                                     (2, 2, 300, 32)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, n, d):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    # q, k, v as the model hands them over: views of a [B, N, 3, H, D] qkv
+    qkv = (torch.randn(b, n, 3, h, d, generator=g, device=cuda) * 1.5
+           ).to(dtype)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    before = attn.flash_attention.launches
+    got = attn.flash_attention(q, k, v)
+    assert attn.flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, h, n, d)
+    _close(got, attn.flash_attention_reference(q, k, v), attn.TOL[dtype])
+    # contiguous operands give the same result
+    _close(attn.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous()), got, attn.TOL[dtype])
+
+
+def test_flash_attention_matches_sdpa(cuda):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(2, 12, 196, 64, generator=g, device=cuda)
+               for _ in range(3))
+    want = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    _close(attn.flash_attention(q, k, v), want, attn.TOL[torch.float32])
+
+
+def test_flash_attention_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 2, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        attn.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 64, 8, device=cuda).transpose(2, 3)  # D strided
+    with pytest.raises(ValueError, match="contiguous"):
+        attn.flash_attention(q, q, q)
+
+
+def _front_args(g, b, h, w, c, dtype, device, with_keep):
+    x = (torch.randn(b, h, w, c, generator=g, device=device) * 2 + 0.5
+         ).to(dtype)
+    ls, lb, w1, b1, _, _ = _convblock_params(g, c, c, dtype, device)
+    w2 = (torch.randn(c, c, generator=g, device=device) / c ** 0.5).to(dtype)
+    b2 = (0.1 * torch.randn(c, generator=g, device=device)).to(dtype)
+    wd = (torch.randn(5, 5, c, generator=g, device=device) / 5).to(dtype)
+    bd = (0.1 * torch.randn(c, generator=g, device=device)).to(dtype)
+    keep = None
+    if with_keep:
+        keep = (torch.rand(b, h, w, 1, generator=g, device=device) > 0.6
+                ).to(dtype)
+    return (x, ls.to(dtype), lb.to(dtype), w1, b1, wd, bd, w2, b2, keep)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_keep", [False, True])
+@pytest.mark.parametrize("b,h,w,c", [(2, 14, 14, 256), (2, 28, 28, 384),
+                                     (1, 9, 13, 256), (2, 56, 56, 256)])
+def test_fused_front_kernel_matches_plain(cuda, dtype, with_keep, b, h, w, c):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    args = _front_args(g, b, h, w, c, dtype, cuda, with_keep)
+    before = fcb.fused_front.launches
+    got = fcb.fused_front(*args)
+    assert fcb.fused_front.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, h, w, c)
+    _close(got, fcb.fused_front_reference(*args), fcb.TOL[dtype])
+
+
+def test_fused_front_kernel_rejects_what_it_cannot_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    args = _front_args(g, 1, 8, 8, 192, torch.float32, cuda, False)
+    with pytest.raises(ValueError, match="C in"):
+        fcb.fused_front(*args)

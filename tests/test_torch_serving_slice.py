@@ -195,10 +195,13 @@ def test_port_imports_no_jax_or_missing_packages():
         "'core.checkpoint', 'data.pipeline', 'ops.affine_warp', "
         "'ops.glcm', 'ops.glrlm_runs', 'ops.histogram', "
         "'ops.connected_components', 'ops.texture', 'ops.texture_extra', "
-        "'ops.filters', 'analysis.radiomics'}\n"
+        "'ops.filters', 'analysis.radiomics', 'ops.patches', "
+        "'ops.fused_mlp', 'ops.attention', 'ops.fused_convblock', "
+        "'models.convmae', 'train.mae', 'analysis.latents', 'analysis.pca', "
+        "'analysis.latent_pipeline'}\n"
         "missing = want - {n.split('.', 1)[1] for n in names}\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 33, names\n"
+        "assert len(names) >= 42, names\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
