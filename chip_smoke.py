@@ -62,7 +62,24 @@ width with random weights from a seed:
    masking draws; times each kernel against its plain version, bound and
    (attention) ``F.scaled_dot_product_attention``, the encoder's img/s on
    the three configurations, the validation forward, peak memory and
-   profiles.
+   profiles;
+11. ConvMAE training (the slice's configuration: bs 16 float32, mask 0.75,
+   norm-pix loss, AdamW enc 1e-5 / dec 1e-3, betas (0.9, 0.95), wd 0.05,
+   the fused LN-MLP on): holds the fused LN-MLP backward kernel against its
+   plain version at every geometry of the path (stages 1 and 2 at bs 16
+   float32 and bs 64 bf16, and an M that is not a multiple of the row
+   block); checks one train step's gradients, kernel path against plain
+   path, at full width and depth (no parameter without a finite gradient);
+   trains 2 epochs on 160 rendered lesions (450² crops, 10% held out;
+   ``weighted_sample_indices`` each epoch, ``DeviceDataset`` with masks,
+   ``mae_train``) through ``train_mae`` with a validation epoch each on
+   fixed draws, 4 forward and 4 backward fused launches a step, restores the
+   best-validation checkpoint into a fresh model and optimizer and checks
+   its validation loss bit for bit; runs one step with all three kernels and
+   lesion-guided masking against the plain path; trains 20 steps on one
+   fixed batch (the loss must fall); times the backward kernel against its
+   plain version and bound, the train step in img/s at bs 16 float32 and
+   bs 64 bf16 on the kernel and plain paths, peak memory and a profile.
 
 Float32 on the card runs in full float32 here: TF32 is off for cuDNN and
 cuBLAS throughout (``torch.backends.cudnn.allow_tf32 = False``).
@@ -104,6 +121,10 @@ LAT_BATCH = 128           # cli/save_latent.py:61
 VAL_BATCH = 16            # configs/config.yml batch_size, MAE validation
 MASK_RATIO = 0.75         # configs/config.yml eval_masking_ratio
 MAE_KERNELS = ("fused_ln_mlp", "flash_attention", "fused_front")
+MAE_TRAIN_N = 160         # rendered lesions of the MAE training slice
+MAE_EPOCHS = 2
+MAE_LARGE_BATCH = 64      # the bf16 train step (the JAX bench's MAE batch)
+MAE_LEARN_STEPS = 20
 SOURCE = {"dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
           "expand_dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
           "affine_warp_batch": "multimodal_isic_tpu_torch/csrc/affine_warp.cu",
@@ -114,7 +135,9 @@ SOURCE = {"dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
               "multimodal_isic_tpu_torch/csrc/connected_components.cu",
           "fused_ln_mlp": "multimodal_isic_tpu_torch/csrc/fused_ln_mlp.cu",
           "flash_attention": "multimodal_isic_tpu_torch/csrc/flash_attention.cu",
-          "fused_front": "multimodal_isic_tpu_torch/csrc/fused_front.cu"}
+          "fused_front": "multimodal_isic_tpu_torch/csrc/fused_front.cu",
+          "fused_ln_mlp_backward":
+              "multimodal_isic_tpu_torch/csrc/fused_ln_mlp_bwd.cu"}
 REPLACES = {"dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:272",
             "expand_dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:326",
             "affine_warp_batch": "multimodal_isic_tpu/ops/pallas_warp.py:190",
@@ -124,7 +147,8 @@ REPLACES = {"dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:272",
             "connected_components": "multimodal_isic_tpu/ops/pallas_cc.py:148",
             "fused_ln_mlp": "multimodal_isic_tpu/ops/fused_mlp.py:196",
             "flash_attention": "multimodal_isic_tpu/ops/attention.py:93",
-            "fused_front": "multimodal_isic_tpu/ops/fused_convblock.py:146"}
+            "fused_front": "multimodal_isic_tpu/ops/fused_convblock.py:146",
+            "fused_ln_mlp_backward": "multimodal_isic_tpu/ops/fused_mlp.py:312"}
 RAD_KERNELS = ("glcm_matrices", "glrlm_runs", "joint_histogram",
                "connected_components")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
@@ -180,6 +204,13 @@ RAD_CPU_TOL = dict(rtol=1e-3, atol=1e-3)
 LATENT_TOL = {"max_abs": 0.25, "rel_rms": 0.03}
 # float32 validation losses (~2), all kernels vs none: summation order only.
 VAL_TOL = dict(rtol=1e-4, atol=1e-5)
+# One float32 train step's gradients, kernel path vs plain path, per
+# parameter group (top-level module): ||kernel - plain|| / ||plain|| over the
+# group.  The paths differ in float32 summation order only (kernels vs
+# cuBLAS), carried through 15 encoder and 8 decoder blocks and back; a group
+# norm, not a tensor's, because the key part of each qkv bias has an exactly
+# zero gradient whose computed value is rounding noise.
+MAE_GRAD_TOL = 1e-3
 
 
 def serving_geometries(name: str = "efficientnet-b3", size: int = IMG):
@@ -599,6 +630,7 @@ def learning_evidence(device, train_ds):
 
 
 KERNEL_FAMILIES = (  # (label, substrings of the kernel name), first match
+    ("fused LN-MLP backward kernels", ("ln_mlp_bwd",)),
     ("fused LN-MLP kernel", ("fused_ln_mlp",)),
     ("attention kernel", ("flash_attention",)),
     ("fused front kernel", ("fused_front",)),
@@ -1435,6 +1467,346 @@ def time_mae(device, crops, masks, val_imgs, val_draws):
     return out
 
 
+# ------------------------------------------------------------ MAE training
+
+def b10_geometries():
+    """(dtype, M, C) of the backward kernel's calls: stages 1 and 2 of the
+    train step at bs 16 float32 and bs 64 bf16, and M that is not a multiple
+    of either row block."""
+    f32, bf = torch.float32, torch.bfloat16
+    vb, lb = VAL_BATCH, MAE_LARGE_BATCH
+    return [(f32, vb * 56 * 56, 256), (f32, vb * 28 * 28, 384),
+            (bf, lb * 56 * 56, 256), (bf, lb * 28 * 28, 384),
+            (f32, 1000, 256), (bf, 1000, 384)]
+
+
+def _b10_inputs(dtype, m, c, device, g):
+    """x, the output cotangent and a ConvBlock's MLP parameters, as
+    :func:`_mae_inputs` makes the forward's."""
+    x = _mae_inputs("fused_ln_mlp", (1, 1, c), dtype, device, g)
+    rn = lambda *s: torch.randn(*s, generator=g, device=device)
+    return ((rn(m, c) * 2 + 0.5).to(dtype), rn(m, c).to(dtype), *x[1:])
+
+
+def check_b10(device):
+    """The backward kernel against its plain version at every geometry of
+    the path → worst max |dx kernel − dx plain|."""
+    from multimodal_isic_tpu_torch.ops import fused_mlp as FM
+    g = torch.Generator(device=device).manual_seed(SEED + 30)
+    print("fused_ln_mlp_backward vs plain tolerance: dx |err| <= atol + "
+          "rtol*|plain| (atol, rtol), the parameter gradients by relative "
+          "Frobenius error: " + "; ".join(
+              f"{str(dt)[6:]} dx {t['dx']} rel_fro {t['rel_fro']}"
+              for dt, t in FM.BWD_TOL.items()))
+    worst, failures = 0.0, []
+    for dtype, m, c in b10_geometries():
+        args = _b10_inputs(dtype, m, c, device, g)
+        got = FM.fused_ln_mlp_backward(*args)
+        want = FM.fused_ln_mlp_backward_reference(*args)
+        again = FM.fused_ln_mlp_backward(*args)
+        torch.cuda.synchronize()
+        tol = FM.BWD_TOL[dtype]
+        err, ok = _allclose_err(got[0], want[0], *tol["dx"])
+        rels = [float((a.float() - b.float()).norm() / b.float().norm())
+                for a, b in zip(got[1:], want[1:])]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = ok and max(rels) <= tol["rel_fro"] and same
+        worst = max(worst, err)
+        label = f"fused_ln_mlp_backward M {m} C {c} {str(dtype)[6:]}"
+        print(f"check {label}: dx max_abs_err {err:.3e}; rel_fro dls dlb dw1 "
+              f"db1 dw2 db2 " + " ".join(f"{r:.2e}" for r in rels)
+              + f"; same bits on a rerun {same} ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            failures.append(label)
+        del args, got, want, again
+    if failures:
+        raise AssertionError(f"fused_ln_mlp_backward vs plain: {failures}")
+    return worst
+
+
+def _grad_errors(kernel, plain):
+    """Per parameter group (top-level module) the relative Frobenius error
+    of one step's gradients, kernel path vs plain path; raises on a missing
+    or non-finite gradient."""
+    bad = [k for k, p in kernel.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if bad:
+        raise AssertionError(f"missing or non-finite gradients: {bad[:8]}")
+    num, den = {}, {}
+    want = dict(plain.named_parameters())
+    for k, p in kernel.named_parameters():
+        grp = k.split(".")[0]
+        num[grp] = num.get(grp, 0.0) + float((p.grad - want[k].grad).pow(2).sum())
+        den[grp] = den.get(grp, 0.0) + float(want[k].grad.pow(2).sum())
+    return {grp: math.sqrt(num[grp] / max(den[grp], 1e-300)) for grp in num}
+
+
+def _step_grads(models, imgs, draws):
+    for m in models.values():
+        m.zero_grad(set_to_none=True)
+        loss, _, _ = m(imgs, MASK_RATIO, masking=draws)
+        loss.backward()
+
+
+def _check_grads(label, models, launches):
+    errs = _grad_errors(models["kernel"], models["plain"])
+    print(f"{label}: kernel launches {launches}; worst relative gradient "
+          f"error per parameter group vs the plain path (tolerance "
+          f"{MAE_GRAD_TOL}): " + ", ".join(f"{k} {v:.2e}"
+                                            for k, v in errs.items()))
+    if max(errs.values()) > MAE_GRAD_TOL:
+        raise AssertionError(f"{label}: gradients out of tolerance")
+
+
+def _all_launches():
+    from multimodal_isic_tpu_torch.ops import fused_mlp as FM
+    out = _mae_launches()
+    out["fused_ln_mlp_backward"] = FM.fused_ln_mlp_backward.launches
+    return out
+
+
+def _reset_all_launches():
+    from multimodal_isic_tpu_torch.ops import fused_mlp as FM
+    _reset_mae_launches()
+    FM.fused_ln_mlp_backward.launches = 0
+
+
+def mae_train_slice(device, crops, masks, targets):
+    """ConvMAE training at ConvViT-Base width and depth, bs 16 float32 →
+    (backward kernel launches in training, the staged training split)."""
+    from multimodal_isic_tpu_torch.core.checkpoint import restore_train_state
+    from multimodal_isic_tpu_torch.core.rng import RngPool, generator
+    from multimodal_isic_tpu_torch.core.splits import weighted_sample_indices
+    from multimodal_isic_tpu_torch.data.augment import POLICIES
+    from multimodal_isic_tpu_torch.data.pipeline import DeviceDataset
+    from multimodal_isic_tpu_torch.models.convmae import ConvMAE
+    from multimodal_isic_tpu_torch.train import mae as M
+    t0 = time.perf_counter()
+    n, b = MAE_TRAIN_N, VAL_BATCH
+    val_idx = np.arange(0, n, 10)  # 10% held out
+    train_idx = np.setdiff1d(np.arange(n), val_idx)
+    stage = lambda idx: DeviceDataset(crops[idx], {"target": targets[idx]},
+                                      masks[idx], device=device)
+    train_ds, val_ds = stage(train_idx), stage(val_idx)
+    print(f"MAE train: {n} rendered lesions (450² crops; a depth cut of "
+          f"HAM10000's 10,015), {len(train_ds)} train + {len(val_ds)} val "
+          f"staged with masks in {time.perf_counter() - t0:.1f} s")
+
+    # one train step's gradients, kernel path vs plain path
+    models = mae_models(device, SEED + 31, norm_pix_loss=True,
+                        variants={"kernel": dict(use_fused_mlp=True),
+                                  "plain": dict(use_fused_mlp=False)})
+    imgs, _ = POLICIES["mae_train"](train_ds.images[:b], train_ds.masks[:b],
+                                    generator(SEED + 32, device))
+    draws = models["kernel"].masking(b, MASK_RATIO,
+                                     generator(SEED + 33, device))
+    _reset_all_launches()
+    _step_grads(models, imgs, draws)
+    _check_grads(f"train step gradients bs {b} f32 (fused LN-MLP)", models,
+                 _all_launches())
+
+    # two epochs through train_mae, the best checkpoint restored
+    model = models.pop("kernel").train()
+    del models
+    opt = M.mae_optimizer(model)
+    train_epoch = M.make_mae_train_epoch(model, opt, MASK_RATIO, False,
+                                         POLICIES["mae_train"])
+    val_epoch = M.make_mae_eval_epoch(model, MASK_RATIO, POLICIES["mae_eval"])
+    val_order = val_ds.epoch_order(b)
+    labels = targets[train_idx]
+    orders = [train_ds.epoch_order(b, weighted_sample_indices(
+        labels, None, np.random.RandomState(SEED + e)))
+        for e in range(MAE_EPOCHS)]
+    val_gen = lambda: generator(SEED + 34, device)  # fixed draws
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_mae_ckpt"
+
+    class Log:
+        def log(self, *a, **k):
+            pass
+
+        def print(self, msg):
+            print(msg)
+
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    out = M.train_mae(
+        model, opt,
+        lambda e, aug, msk: train_epoch(train_ds.images, train_ds.masks,
+                                        orders[e], aug, msk),
+        lambda _: val_epoch(val_ds.images, val_ds.masks, val_order,
+                            val_gen()),
+        MAE_EPOCHS, RngPool(SEED, device), logger=Log(),
+        checkpoint_dir=str(ckpt_dir))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _all_launches()
+    n_steps = sum(len(o) for o in orders)
+    n_val = MAE_EPOCHS * len(val_order)
+    print(f"MAE train: {MAE_EPOCHS} epochs of {len(orders[0])} steps of {b} "
+          f"(weighted resampling, mae_train), validation {len(val_order)} "
+          f"step an epoch on fixed draws: {wall:.1f} s; launches {launches} "
+          f"over {n_steps} train steps and {n_val} validation forwards")
+    want = {"fused_ln_mlp": 4 * (n_steps + n_val), "flash_attention": 0,
+            "fused_front": 0, "fused_ln_mlp_backward": 4 * n_steps}
+    if launches != want:
+        raise AssertionError(f"MAE train launches {launches} != {want}")
+    losses = [v for h in out["history"] for v in (h["train_loss"],
+                                                  h["val_loss"])]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite MAE loss")
+    with torch.device("meta"):
+        fresh = ConvMAE(norm_pix_loss=True, use_fused_mlp=True)
+    fresh.to_empty(device=device)
+    fresh_opt = M.mae_optimizer(fresh)
+    meta = restore_train_state(out["checkpoint"], fresh, fresh_opt)
+    same_w = all(torch.equal(v, out["best_state"][k])
+                 for k, v in fresh.state_dict().items())
+    vloss = M.make_mae_eval_epoch(fresh, MASK_RATIO, POLICIES["mae_eval"])(
+        val_ds.images, val_ds.masks, val_order, val_gen())
+    print(f"checkpoint {Path(out['checkpoint']).name} (epoch {meta['epoch']},"
+          f" step {meta['step']}): restored weights equal the best copy "
+          f"{same_w}; restored validation loss {vloss!r} vs saved "
+          f"{out['best_val_loss']!r} (must be equal)")
+    if not same_w or vloss != out["best_val_loss"] or \
+            M.optimizer_step_count(fresh_opt) != meta["step"]:
+        raise AssertionError("restored MAE checkpoint differs")
+    del model, opt, fresh, fresh_opt, out
+    torch.cuda.empty_cache()
+
+    # one step with all three kernels and lesion-guided masking
+    models = mae_models(device, SEED + 35, norm_pix_loss=True,
+                        variants={"kernel": ALL_FLAGS,
+                                  "plain": dict(use_fused_mlp=False)})
+    imgs, msk = POLICIES["mae_train"](train_ds.images[b:2 * b],
+                                      train_ds.masks[b:2 * b],
+                                      generator(SEED + 36, device))
+    draws = models["kernel"].masking(b, MASK_RATIO,
+                                     generator(SEED + 37, device),
+                                     lesion_mask=msk)
+    _reset_all_launches()
+    _step_grads(models, imgs, draws)
+    launches_all = _all_launches()
+    _check_grads(f"train step gradients bs {b} f32, all kernels, "
+                 f"lesion-guided masking", models, launches_all)
+    want = {"fused_ln_mlp": 4, "flash_attention": 11 + 8, "fused_front": 4,
+            "fused_ln_mlp_backward": 4}
+    if launches_all != want:
+        raise AssertionError(f"all-kernel step launches {launches_all} != "
+                             f"{want}")
+    del models
+    torch.cuda.empty_cache()
+    return launches["fused_ln_mlp_backward"], train_ds
+
+
+def mae_learning_evidence(device, train_ds):
+    """20 AdamW steps on one fixed batch of 16 with fixed masking draws, on
+    the kernel path: the loss must fall."""
+    from multimodal_isic_tpu_torch.core.rng import generator
+    from multimodal_isic_tpu_torch.data.augment import mae_eval_batch
+    from multimodal_isic_tpu_torch.train import mae as M
+    model = mae_models(device, SEED + 38, norm_pix_loss=True,
+                       variants={"kernel": dict(use_fused_mlp=True)})["kernel"]
+    b = VAL_BATCH
+    imgs, _ = mae_eval_batch(train_ds.images[:b], train_ds.masks[:b])
+    draws = model.masking(b, MASK_RATIO, generator(SEED + 39, device))
+    step = M.make_mae_train_step(model, M.mae_optimizer(model), MASK_RATIO)
+    losses = [float(step(imgs, masking=draws)) for _ in range(MAE_LEARN_STEPS)]
+    print(f"MAE fixed batch of {b}, {MAE_LEARN_STEPS} steps, loss per step: "
+          + " ".join(f"{v:.4f}" for v in losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the MAE loss did not fall on a fixed batch")
+
+
+def b10_bound_ms(dtype, m, c):
+    """(bytes ms, operations ms) of one backward call: x, g read and dx
+    written once, both weights read and their gradients (float32) written
+    once, the vectors; the operations the function needs, 10·M·C·F (the h
+    recompute, g·w2ᵀ, aᵀg, yᵀdh, dh·w1ᵀ), at the rate of their operands'
+    type.  The kernel's two passes both recompute h and g·w2ᵀ, 14·M·C·F:
+    that overhead is its own and is not in the bound."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    f = 4 * c
+    nbytes = 3 * m * c * esz + 2 * c * f * esz + 2 * c * f * 4 + (6 * c + 2 * f) * 4
+    ops = 10 * m * c * f
+    return (nbytes / HBM_BPS * 1e3,
+            ops_ms(bf16=ops) if dtype == torch.bfloat16 else ops_ms(f32=ops))
+
+
+def time_mae_train(device, train_ds):
+    """The backward kernel against its plain version and bound at the train
+    step's shapes (bs 16 float32), and the train step in img/s at bs 16
+    float32 and bs 64 bf16 on the kernel and plain paths, peak memory and
+    profiles → per step (ms, plain ms, bound ms, bytes ms, operations ms,
+    library ms)."""
+    from multimodal_isic_tpu_torch.core.rng import generator
+    from multimodal_isic_tpu_torch.data.augment import mae_eval_batch
+    from multimodal_isic_tpu_torch.ops import fused_mlp as FM
+    from multimodal_isic_tpu_torch.train import mae as M
+    from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
+    g = torch.Generator(device=device).manual_seed(SEED + 40)
+    tot = [0.0] * 5
+    for dtype, m, c in b10_geometries()[:4]:
+        args = _b10_inputs(dtype, m, c, device, g)
+        runs = {"kernel": [], "plain": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = (FM.fused_ln_mlp_backward if which == "kernel"
+                  else FM.fused_ln_mlp_backward_reference)
+            runs[which].append(timeit_closed(lambda: fn(*args),
+                                             iters=5 if which == "kernel" else 2,
+                                             repeats=3))
+        med = {k: min(r["median"] for r in v) * 1e3 for k, v in runs.items()}
+        b_bytes, b_ops = b10_bound_ms(dtype, m, c)
+        bound = max(b_bytes, b_ops)
+        print(f"time fused_ln_mlp_backward M {m} C {c} {str(dtype)[6:]}: "
+              f"kernel {med['kernel']:.4f} ms, plain {med['plain']:.4f} ms "
+              f"({med['plain'] / med['kernel']:.2f}x); bound {bound:.4f} ms "
+              f"(bytes {b_bytes:.4f}, operations {b_ops:.4f}): "
+              f"{bound / med['kernel']:.1%} of it (the kernel's own two-pass "
+              f"recompute does 1.4x the bound's operations); library: none "
+              f"(no one PyTorch call computes this function); 2 calls a step")
+        if dtype == torch.float32:  # the slice's step: bs 16 float32
+            for i, v in enumerate((med["kernel"], med["plain"], bound,
+                                   b_bytes, b_ops)):
+                tot[i] += 2 * v
+        del args
+
+    pol_gen = generator(SEED + 41, device)
+    for bsz, dtype in ((VAL_BATCH, torch.float32),
+                       (MAE_LARGE_BATCH, torch.bfloat16)):
+        idx = torch.arange(bsz, device=device) % len(train_ds)
+        imgs, _ = mae_eval_batch(train_ds.images[idx], train_ds.masks[idx])
+        models = mae_models(device, SEED + 42, norm_pix_loss=True,
+                            dtype=dtype,
+                            variants={"kernel": dict(use_fused_mlp=True),
+                                      "plain": dict(use_fused_mlp=False)})
+        steps = {k: M.make_mae_train_step(m.train(), M.mae_optimizer(m),
+                                          MASK_RATIO)
+                 for k, m in models.items()}
+        runs = {k: [] for k in steps}
+        peak = {}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            torch.cuda.reset_peak_memory_stats()
+            runs[name].append(timeit_closed(
+                lambda: steps[name](imgs, generator=pol_gen), iters=3,
+                repeats=3))
+            peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        for name, r in runs.items():
+            med = float(np.median([x["median"] for x in r]))
+            best = min(x["best"] for x in r)
+            print(f"MAE train step bs{bsz} {str(dtype)[6:]} ({name} path: "
+                  f"forward + backward + AdamW on one policy-made batch, "
+                  f"augmentation not timed): {bsz / med:.1f} img/s "
+                  f"(median, best {bsz / best:.1f}); {med * 1e3:.2f} ms a "
+                  f"step; peak device memory {peak[name]:.2f} GiB")
+        for name in ("kernel", "plain"):
+            profile_steps(lambda: steps[name](imgs, generator=pol_gen),
+                          f"MAE train step bs{bsz} {str(dtype)[6:]} {name} "
+                          f"path", steps=2)
+        del models, steps
+        torch.cuda.empty_cache()
+    return tot + [None]
+
+
 def to_device_batch(reqs, device, sl=slice(None)):
     return {k: torch.from_numpy(np.ascontiguousarray(v[sl])).to(device)
             for k, v in reqs.items()}
@@ -1478,7 +1850,8 @@ def main() -> int:
             "glcm": glcm._lib, "glrlm_runs": glrlm_runs._lib,
             "histogram": histogram._lib, "connected_components": cc._lib,
             "fused_ln_mlp": fused_mlp._lib, "flash_attention": attention._lib,
-            "fused_front": fused_convblock._lib}
+            "fused_front": fused_convblock._lib,
+            "fused_ln_mlp_bwd": fused_mlp._bwd_lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda load: load(), libs.values()))
     print(f"build: {len(libs)} kernel libraries in "
@@ -1643,6 +2016,19 @@ def main() -> int:
     mae_times = time_mae(device, crops, mmasks, val_imgs, val_draws)
     print(f"wall {time.perf_counter() - t_start:.1f} s")
 
+    # 11. ConvMAE training: the backward kernel vs plain, a step's gradients,
+    # the epochs and the checkpoint, all kernels with lesion guidance,
+    # learning evidence, times
+    t11 = time.perf_counter()
+    worst_err["fused_ln_mlp_backward"] = check_b10(device)
+    launches["fused_ln_mlp_backward"], mae_ds = mae_train_slice(
+        device, crops[:MAE_TRAIN_N], mmasks[:MAE_TRAIN_N],
+        targets[:MAE_TRAIN_N])
+    mae_learning_evidence(device, mae_ds)
+    mae_times["fused_ln_mlp_backward"] = time_mae_train(device, mae_ds)
+    print(f"phase 11 (ConvMAE training) {time.perf_counter() - t11:.1f} s; "
+          f"wall {time.perf_counter() - t_start:.1f} s")
+
     med, bound, b_bytes, b_ops = warp_times[BATCH]
     totals["affine_warp_batch"] = [med["kernel"], med["plain"], bound, b_bytes,
                                    b_ops]
@@ -1660,7 +2046,8 @@ def main() -> int:
                       else "operations"),
          "library_ms": library.get(name)}
         for name in ("expand_dw_silu_pool", "dw_silu_pool",
-                     "affine_warp_batch") + RAD_KERNELS + MAE_KERNELS]}))
+                     "affine_warp_batch") + RAD_KERNELS + MAE_KERNELS
+        + ("fused_ln_mlp_backward",)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

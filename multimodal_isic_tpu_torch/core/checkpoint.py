@@ -9,13 +9,22 @@ stored as "/"-joined paths, and the manifest's ``treedef`` is
 ``"state_dict"``; ``models/convert.py::state_dict_from_checkpoint`` reads
 this layout and the JAX package's alike.  Sharding has no counterpart here:
 one process, one card.
+
+:func:`save_train_state` / :func:`restore_train_state` keep a whole training
+state in the same layout, as the JAX MAE loop saves params + optimizer +
+step + RNG (``train/mae.py:278-283``): the model's state dict under
+``model.``, the optimizer's per-parameter tensors (AdamW's ``step``,
+``exp_avg``, ``exp_avg_sq``) under ``opt.<index>.``, and in the manifest's
+metadata the step, the optimizer's parameter groups and the ``RngPool``'s
+stream counters (its generators are derived from them, so they are its
+state).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -81,3 +90,49 @@ def restore_checkpoint(path: str, target: Optional[StateDict] = None,
     elif device is not None:
         out = {k: v.to(device) for k, v in out.items()}
     return out
+
+
+def read_metadata(path: str) -> dict:
+    """The ``metadata`` of a checkpoint's manifest."""
+    with open(os.path.join(path, MANIFEST)) as f:
+        return json.load(f)["metadata"]
+
+
+def save_train_state(directory: str, model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer, step: int,
+                     rng_pool: Any = None,
+                     metadata: Optional[dict] = None) -> str:
+    """Write model + optimizer + step + RNG under ``directory/step_<step>``
+    → the checkpoint path."""
+    arrays: StateDict = {f"model.{k}": v for k, v in model.state_dict().items()}
+    opt = optimizer.state_dict()
+    for idx, state in opt["state"].items():
+        for name, t in state.items():
+            arrays[f"opt.{idx}.{name}"] = torch.as_tensor(t)
+    meta = {"step": int(step), "param_groups": opt["param_groups"],
+            "rng_pool": rng_pool.state() if rng_pool is not None else None,
+            **(metadata or {})}
+    return save_checkpoint(directory, arrays, step=step, metadata=meta)
+
+
+def restore_train_state(path: str, model: torch.nn.Module,
+                        optimizer: Optional[torch.optim.Optimizer] = None,
+                        rng_pool: Any = None) -> dict:
+    """Load a :func:`save_train_state` checkpoint into ``model`` (and
+    ``optimizer`` and ``rng_pool`` when given) → its metadata."""
+    arrays = restore_checkpoint(path)
+    meta = read_metadata(path)
+    model.load_state_dict({k[len("model."):]: v for k, v in arrays.items()
+                           if k.startswith("model.")})
+    if optimizer is not None:
+        state: Dict[int, Dict[str, torch.Tensor]] = {}
+        for k, v in arrays.items():
+            if k.startswith("opt."):
+                _, idx, name = k.split(".", 2)
+                state.setdefault(int(idx), {})[name] = v
+        groups = [{**g, "betas": tuple(g["betas"])} if "betas" in g else g
+                  for g in meta["param_groups"]]  # JSON made the tuple a list
+        optimizer.load_state_dict({"state": state, "param_groups": groups})
+    if rng_pool is not None and meta.get("rng_pool") is not None:
+        rng_pool.load_state(meta["rng_pool"])
+    return meta

@@ -87,3 +87,16 @@ class RngPool:
 
     def __getitem__(self, name: str) -> RngStream:
         return self.stream(name)
+
+    def state(self) -> Dict[str, object]:
+        """The pool's position: its seed and each stream's counter (what a
+        checkpoint needs to resume the same draws)."""
+        return {"seed": self.seed,
+                "counters": {k: s._counter for k, s in self._streams.items()}}
+
+    def load_state(self, state: Dict[str, object]) -> None:
+        if int(state["seed"]) != self.seed:
+            raise ValueError(f"RNG state of seed {state['seed']} loaded into "
+                             f"a pool of seed {self.seed}")
+        for name, counter in dict(state["counters"]).items():
+            self.stream(name)._counter = int(counter)

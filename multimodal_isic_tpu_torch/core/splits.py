@@ -4,7 +4,10 @@ Counterpart of ``multimodal_isic_tpu/core/splits.py::StratifiedKFold``
 (:24-66): the reference's protocol is ``StratifiedKFold(10, shuffle=True)``
 (``main.py:100``), and this reimplements sklearn's allocation on
 ``np.random.RandomState`` so the same seed puts the same samples in the same
-folds.  The other splitters come with the modules that use them.
+folds.  :func:`weighted_sample_indices` (:143-154) is the MAE's per-epoch
+inverse-class-frequency resampler, drawn from the same ``RandomState`` calls
+as the JAX one, so one seed gives the same indices.  The other splitters come
+with the modules that use them.
 """
 
 from __future__ import annotations
@@ -56,3 +59,17 @@ class StratifiedKFold:
         for k in range(self.n_splits):
             test_mask = test_folds == k
             yield indices[~test_mask], indices[test_mask]
+
+
+def weighted_sample_indices(labels: np.ndarray, num_samples: Optional[int],
+                            rng: np.random.RandomState) -> np.ndarray:
+    """Inverse-class-frequency resampling with replacement, the behaviour of
+    ``WeightedRandomSampler(1/class_count, len(dataset), replacement=True)``
+    (``train_ae.py:122-127``): ``num_samples`` (default ``len(labels)``)
+    indices drawn by ``rng.choice`` with p ∝ 1/count[label]."""
+    labels = np.asarray(labels)
+    counts = np.bincount(labels)
+    weights = 1.0 / counts[labels]
+    p = weights / weights.sum()
+    n = len(labels) if num_samples is None else num_samples
+    return rng.choice(len(labels), size=n, replace=True, p=p)

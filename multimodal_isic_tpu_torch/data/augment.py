@@ -1,9 +1,8 @@
 """Device-side preprocessing and the fusion train-time augmentations.
 
-Counterpart of ``multimodal_isic_tpu/data/augment.py`` (:22-116 eval
-preprocess, :132-283 geometric, :331-423 colour, :428-554 fusion policies,
-:457-479 the MAE eval policy; the MAE train policy comes with ConvMAE
-training).
+Counterpart of ``multimodal_isic_tpu/data/augment.py`` (:22-130 eval
+preprocess and ``crop_and_resize``, :132-326 geometric, :331-423 colour,
+:428-554 the fusion and MAE policies).
 
 Eval preprocess: the separable half-pixel-centre bilinear resize
 (cv2.INTER_LINEAR, no antialias) written as two dense banded matmuls,
@@ -18,7 +17,8 @@ numbers from one seed:
 - a *draw* function (generator, batch size) → a dict of tensors on the
   generator's device: flip flags and ``rot_k``; SSR ``apply``, ``dx``,
   ``dy``, ``scale``, ``angle``; jitter ``apply``, factors and ``perm``; noise
-  ``apply``, ``var`` and the standard-normal ``noise`` field;
+  ``apply``, ``var`` and the standard-normal ``noise`` field; the resized
+  crop's ``y0``, ``x0``, ``crop_h``, ``crop_w``;
 - an *apply* function (images, draws) that is deterministic, so the tests
   feed it the JAX package's own draws.
 
@@ -30,6 +30,7 @@ Nothing here reads torch's global RNG.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -216,6 +217,96 @@ def shift_scale_rotate(imgs: torch.Tensor, masks: Optional[torch.Tensor],
         masks = torch.where(_per_image(draws["apply"], mf), warped, mf
                             ).to(masks.dtype)
     return imgs, masks
+
+
+def scale_translate_weights(n_in: int, n_out: int, scale: torch.Tensor,
+                            translation: torch.Tensor) -> torch.Tensor:
+    """Per-image [B, n_out, n_in] float32 weights of
+    ``jax.image.scale_and_translate`` along one axis, linear (triangle)
+    kernel without antialiasing (``compute_weight_mat``): output pixel o
+    samples ``s = (o + 0.5)/scale − translation/scale − 0.5``; the taps
+    ``max(0, 1 − |s − i|)`` are renormalised to sum 1 (zero where the sum is
+    below 1000 float32 eps), and rows whose ``s`` lies outside
+    [−0.5, n_in − 0.5] are zero.  ``scale``/``translation`` [B] float32."""
+    dev = scale.device
+    inv = 1.0 / scale.float()
+    out = torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5
+    sample = out[None, :] * inv[:, None] - (translation.float() * inv)[:, None] - 0.5
+    taps = torch.arange(n_in, dtype=torch.float32, device=dev)
+    w = (1.0 - (sample[:, None, :] - taps[None, :, None]).abs()).clamp_min(0.0)
+    total = w.sum(dim=1, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    w = torch.where(inside[:, None, :], w, torch.zeros_like(w))
+    return w.transpose(1, 2)
+
+
+def crop_and_resize(imgs: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
+                    crop_h: torch.Tensor, crop_w: torch.Tensor,
+                    out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Each image's window (y0, x0, crop_h, crop_w) [B] resized to
+    ``out_hw`` with ``jax.image.scale_and_translate``'s linear weights
+    (``augment.py:119-129``): imgs [B, H, W, C] float32 → [B, oh, ow, C],
+    the two axes as per-image [out, in] weight matrices."""
+    oh, ow = out_hw
+    sh = oh / crop_h.float()
+    sw = ow / crop_w.float()
+    wh = scale_translate_weights(imgs.shape[1], oh, sh, -y0.float() * sh)
+    ww = scale_translate_weights(imgs.shape[2], ow, sw, -x0.float() * sw)
+    t = torch.einsum("boh,bhwc->bowc", wh, imgs)
+    return torch.einsum("bpw,bowc->bopc", ww, t)
+
+
+def random_resized_crop_draw(gen: torch.Generator, bsz: int,
+                             hw: Tuple[int, int],
+                             scale: Tuple[float, float] = (0.5, 1.0),
+                             ratio: Tuple[float, float] = (0.75, 4.0 / 3.0),
+                             attempts: int = 10) -> Draws:
+    """torchvision RandomResizedCrop's draws (the reference MAE train crop,
+    ``train_ae.py:90``) for images of size ``hw``, as the JAX
+    ``random_resized_crop`` makes them (:286-309): ``attempts`` (area,
+    log-aspect) pairs, the first whose rounded size fits wins, else the
+    centred square of side min(H, W); the offsets are integers uniform in
+    range.  → float32 [B] ``y0``, ``x0``, ``crop_h``, ``crop_w``."""
+    h, w = hw
+    dev = gen.device
+    u = torch.rand(2, bsz, attempts, generator=gen, device=dev)
+    target = (scale[0] + (scale[1] - scale[0]) * u[0]) * float(h * w)
+    lo, hi = math.log(ratio[0]), math.log(ratio[1])
+    ar = torch.exp(lo + (hi - lo) * u[1])
+    ws = torch.round(torch.sqrt(target * ar))
+    hs = torch.round(torch.sqrt(target / ar))
+    valid = (ws > 0) & (ws <= w) & (hs > 0) & (hs <= h)
+    first = valid.int().argmax(dim=1, keepdim=True)  # the first valid attempt
+    found = valid.any(dim=1)
+    side = torch.full((bsz,), float(min(h, w)), device=dev)
+    crop_w = torch.where(found, ws.gather(1, first)[:, 0], side)
+    crop_h = torch.where(found, hs.gather(1, first)[:, 0], side)
+    span_i, span_j = h - crop_h, w - crop_w
+    v = torch.rand(2, bsz, generator=gen, device=dev)
+    rnd_i = torch.minimum(torch.floor(v[0] * (span_i + 1)), span_i)
+    rnd_j = torch.minimum(torch.floor(v[1] * (span_j + 1)), span_j)
+    return {"y0": torch.where(found, rnd_i, torch.floor(span_i / 2)),
+            "x0": torch.where(found, rnd_j, torch.floor(span_j / 2)),
+            "crop_h": crop_h, "crop_w": crop_w}
+
+
+def random_resized_crop(imgs: torch.Tensor, masks: Optional[torch.Tensor],
+                        draws: Draws, out_hw: Tuple[int, int]):
+    """Apply the resized crop: images through :func:`crop_and_resize`;
+    each mask linear-resized the same way and thresholded at half its
+    maximum (at least 1), the JAX rule (:318-325)."""
+    args = (draws["y0"], draws["x0"], draws["crop_h"], draws["crop_w"], out_hw)
+    out = crop_and_resize(imgs, *args)
+    if masks is None:
+        return out, None
+    mf = masks.float()
+    soft = crop_and_resize(mf[..., None], *args)[..., 0]
+    top = _per_image(mf.amax(dim=(1, 2)).clamp_min(1.0), soft)
+    return out, (soft > 0.5 * top).float() * top
 
 
 # ------------------------------------------------------------- colour augs
@@ -408,6 +499,37 @@ def mae_eval_batch(images: torch.Tensor, masks: torch.Tensor,
     return fusion_eval_batch(images, masks, out_hw)
 
 
+def mae_train_draws(gen: torch.Generator, bsz: int, hw: Tuple[int, int]
+                    ) -> Dict[str, Draws]:
+    """Every draw of one batch of the MAE train policy, from ``gen`` in the
+    policy's order: the resized crop of ``hw`` images, then the flips."""
+    return {"crop": random_resized_crop_draw(gen, bsz, hw),
+            "flips": flips_rot90_draw(gen, bsz)}
+
+
+def mae_train_transform(images: torch.Tensor, masks: Optional[torch.Tensor],
+                        draws: Dict[str, Draws],
+                        out_hw: Tuple[int, int] = (224, 224)):
+    """Reference MAE train policy (``train_ae.py:88-100``; JAX
+    ``augment.py:447-454``) on a batch: RandomResizedCrop (scale 0.5-1,
+    ratio 0.75-1.33) → flips/rot90 → Normalize, images and masks (float32)
+    transformed together."""
+    imgs = images.float()
+    imgs, masks = random_resized_crop(
+        imgs, None if masks is None else masks.float(), draws["crop"], out_hw)
+    imgs, masks = random_flips_rot90(imgs, masks, draws["flips"])
+    return normalize_imagenet(imgs), masks
+
+
+def mae_train_batch(images: torch.Tensor, masks: Optional[torch.Tensor],
+                    gen: torch.Generator,
+                    out_hw: Tuple[int, int] = (224, 224)):
+    """uint8 images [B, H, W, 3] and masks [B, H, W] → the MAE train
+    policy, its draws taken from ``gen``."""
+    draws = mae_train_draws(gen, images.shape[0], tuple(images.shape[1:3]))
+    return mae_train_transform(images, masks, draws, out_hw)
+
+
 def make_fusion_train_fast(out_hw: Tuple[int, int] = (380, 380)
                            ) -> Callable:
     """(images, masks, gen) → the fast policy, its draws from ``gen``.
@@ -427,6 +549,7 @@ def make_fusion_train_fast(out_hw: Tuple[int, int] = (380, 380)
 POLICIES = {
     "fusion_train": fusion_train_batch,
     "fusion_eval": fusion_eval_batch,
+    "mae_train": mae_train_batch,
     "mae_eval": mae_eval_batch,
     "fusion_train_fast": make_fusion_train_fast(),
 }

@@ -10,7 +10,9 @@ state dict it holds.  Returns a state dict for
 ``models.efficientnet.EfficientNet`` or ``models.fusion.MultiModalFusionNet``
 (the port names its submodules after the flax tree; ``block_<i>`` becomes
 ``blocks.<i>``), or, through :func:`convmae_state_dict`, for
-``models.convmae.ConvMAE`` (the upstream ConvMAE checkpoint naming).
+``models.convmae.ConvMAE`` (the upstream ConvMAE checkpoint naming); a JAX
+``OptState`` of a ConvMAE becomes the port's AdamW state through
+:func:`convmae_adamw_state`.
 
 Leaf mappings:
 - Dense ``kernel`` [in, out] → ``weight`` [out, in];
@@ -158,3 +160,23 @@ def convmae_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             key = f"{_convmae_module(path[:-1])}.{leaf}"
         out[key] = torch.from_numpy(np.array(a, np.float32, order="C"))
     return out
+
+
+def convmae_adamw_state(opt_state: Any, model: torch.nn.Module,
+                        optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """A JAX ``OptState(step, mu, nu)`` of a ConvMAE's AdamW
+    (``core/optim.py:49-52``; moments as nested dicts of arrays, the params'
+    tree) → a state dict for ``optimizer`` (the port's AdamW over
+    ``model``'s parameters), to pass to ``optimizer.load_state_dict``.  The
+    moments take the parameters' layout changes (:func:`convmae_state_dict`);
+    every parameter gets JAX's step count."""
+    step, mu, nu = opt_state
+    mu_sd, nu_sd = convmae_state_dict(mu), convmae_state_dict(nu)
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    state = {i: {"step": torch.tensor(float(np.asarray(step))),
+                 "exp_avg": mu_sd[names[id(p)]],
+                 "exp_avg_sq": nu_sd[names[id(p)]]}
+             for i, p in enumerate(params)}
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}

@@ -18,8 +18,11 @@ H·D)`` is free.
   of ``csrc/flash_attention.cu`` (built with nvcc at first use), or raises.
 - On a CPU tensor it runs :func:`flash_attention_reference`.
 
-The JAX backward is a recompute through the plain form (:120-124); it comes
-with ConvMAE training.  Launches are counted in
+The backward is the JAX one (:120-124): a recompute through the plain
+version.  The public function goes through a ``torch.autograd.Function`` that
+keeps only q, k and v and, in the backward, runs
+:func:`flash_attention_reference` again under autograd, so no [N, N] tensor
+lives between the forward and the backward.  Launches are counted in
 ``flash_attention.launches``.
 """
 
@@ -63,21 +66,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Softmax attention, q/k/v [B, H, N, D] (float32 or bfloat16, any
-    strides with the D axis contiguous) → [B, H, N, D] in q.dtype."""
+def _check(q, k, v):
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must be [B, H, N, D] of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or all bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: tensors must be on the CPU or a "
                          f"CUDA device, got {q.device}")
+    if q.device.type == "cpu":
+        return
     b, h, n, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim must be in {HEAD_DIMS}, "
@@ -85,7 +85,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"flash_attention: B·H {b * h} > {_MAX_GRID_Y}")
     vec = 16 // q.element_size()  # the kernel moves 16 bytes at a time
-    strides = []
     for t in (q, k, v):
         if t.device != q.device:
             raise ValueError(f"flash_attention: all tensors must be on "
@@ -95,10 +94,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
             raise ValueError("flash_attention: the D axis must be contiguous, "
                              f"the other strides multiples of {vec} and the "
                              f"data 16-byte aligned, got strides {st}")
-        strides += list(st[:3])
+
+
+def _kernel(q, k, v) -> torch.Tensor:
+    """The kernel's result, [B, N, H, D] contiguous."""
+    b, h, n, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out.transpose(1, 2)
+        return out
+    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -109,7 +113,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError("flash_attention launch failed: "
                            f"{lib.flash_attention_error_string(rc).decode()}")
     flash_attention.launches += 1
-    return out.transpose(1, 2)
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel ([B, N, H, D] out), or the plain version on the
+    CPU.  Backward: :func:`flash_attention_reference` recomputed from the
+    saved q, k, v under autograd; the gradients come back in q's, k's and
+    v's shapes (strided views of the qkv projection in the model)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return flash_attention_reference(q, k, v).transpose(1, 2).contiguous()
+        return _kernel(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = flash_attention_reference(*leaves)
+            return torch.autograd.grad(out, leaves, g.transpose(1, 2))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Softmax attention, q/k/v [B, H, N, D] (float32 or bfloat16, any
+    strides with the D axis contiguous) → [B, H, N, D] in q.dtype.
+    Differentiable (the backward recomputes the plain version)."""
+    _check(q, k, v)
+    return _FlashAttention.apply(q, k, v).transpose(1, 2)
 
 
 flash_attention.launches = 0

@@ -20,8 +20,12 @@ model hands them over rounded to its dtype, as the JAX model does.
   ``csrc/fused_front.cu`` (built with nvcc at first use), or raises.
 - On a CPU tensor it runs :func:`fused_front_reference`.
 
-The JAX backward is a recompute (:189-196); it comes with ConvMAE training.
-Launches are counted in ``fused_front.launches``.
+The backward is the JAX one (:189-196): a recompute through the plain
+version.  The public function goes through a ``torch.autograd.Function`` that
+keeps only its inputs and, in the backward, runs
+:func:`fused_front_reference` again under autograd (``keep`` takes no
+gradient), so no [B·H·W, C] intermediate lives between the forward and the
+backward.  Launches are counted in ``fused_front.launches``.
 """
 
 from __future__ import annotations
@@ -76,13 +80,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def fused_front(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor,
-                w1: torch.Tensor, b1: torch.Tensor, wd: torch.Tensor,
-                bd: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                keep: Optional[torch.Tensor] = None,
-                eps: float = 1e-6) -> torch.Tensor:
-    """``x + conv1x1(gelu(dw5x5(keep * conv1x1(layernorm(x)))))``:
-    x [B, H, W, C] (float32 or bfloat16) → [B, H, W, C] in x.dtype."""
+def _check(x, ls, lb, w1, b1, wd, bd, w2, b2, keep):
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got shape {tuple(x.shape)}")
     bsz, h, w, c = x.shape
@@ -100,17 +98,18 @@ def fused_front(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor,
                          f"{tuple(keep.shape)}")
     if x.dtype not in _SUFFIX:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if x.device.type == "cpu":
-        return fused_front_reference(x, ls, lb, w1, b1, wd, bd, w2, b2,
-                                     keep, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_front: tensors must be on the CPU or a CUDA "
                          f"device, got {x.device}")
-    if c not in CHANNELS:
+    if x.device.type == "cuda" and c not in CHANNELS:
         raise ValueError(f"fused_front: the kernel takes C in {CHANNELS}, "
                          f"got {c}")
-    if bsz > _MAX_BATCH:
+    if x.device.type == "cuda" and bsz > _MAX_BATCH:
         raise ValueError(f"fused_front: batch {bsz} > {_MAX_BATCH}")
+
+
+def _kernel(x, ls, lb, w1, b1, wd, bd, w2, b2, keep, eps):
+    bsz, h, w, c = x.shape
     dt = x.dtype
     x = x.contiguous()
     # [C_out, C_in]: the conv parameters themselves when the model passes
@@ -141,6 +140,47 @@ def fused_front(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor,
                            f"{lib.fused_front_error_string(rc).decode()}")
     fused_front.launches += 1
     return out
+
+
+class _FusedFront(torch.autograd.Function):
+    """Forward: the kernel, or the plain version on the CPU.  Backward:
+    :func:`fused_front_reference` recomputed from the saved inputs under
+    autograd, as the JAX ``_bwd`` runs ``jax.vjp`` of its XLA twin."""
+
+    @staticmethod
+    def forward(ctx, x, ls, lb, w1, b1, wd, bd, w2, b2, keep, eps):
+        ctx.save_for_backward(x, ls, lb, w1, b1, wd, bd, w2, b2, keep)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return fused_front_reference(x, ls, lb, w1, b1, wd, bd, w2, b2,
+                                         keep, eps)
+        return _kernel(x, ls, lb, w1, b1, wd, bd, w2, b2, keep, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        *inputs, keep = ctx.saved_tensors
+        need = ctx.needs_input_grad[:9]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, need)]
+            out = fused_front_reference(
+                *leaves, keep=None if keep is None else keep.detach(),
+                eps=ctx.eps)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(leaves, need) if n], g))
+        return (*[next(grads) if n else None for n in need], None, None)
+
+
+def fused_front(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor,
+                w1: torch.Tensor, b1: torch.Tensor, wd: torch.Tensor,
+                bd: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                keep: Optional[torch.Tensor] = None,
+                eps: float = 1e-6) -> torch.Tensor:
+    """``x + conv1x1(gelu(dw5x5(keep * conv1x1(layernorm(x)))))``:
+    x [B, H, W, C] (float32 or bfloat16) → [B, H, W, C] in x.dtype.
+    Differentiable in everything but ``keep`` (the backward recomputes the
+    plain version)."""
+    _check(x, ls, lb, w1, b1, wd, bd, w2, b2, keep)
+    return _FusedFront.apply(x, ls, lb, w1, b1, wd, bd, w2, b2, keep, eps)
 
 
 fused_front.launches = 0

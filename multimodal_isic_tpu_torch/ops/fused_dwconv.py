@@ -19,6 +19,12 @@ The TPU VMEM fit model (``pick_row_tile_*``, ``fits_pallas_*``) has no
 counterpart: the CUDA kernel tiles rows to its shared-memory budget itself,
 so every stride-1 block of the serving forward takes a kernel.
 
+Neither kernel has a backward, as the JAX kernels have no VJP: each wrapper
+raises when grad mode is on and an input requires grad, on every device, and
+returns a result off the autograd graph only under ``torch.no_grad`` /
+``torch.inference_mode`` or when no input requires grad.  (The serving path
+runs under inference mode; training takes the unfused blocks.)
+
 Each wrapper counts its kernel launches in ``<function>.launches``.
 """
 
@@ -91,6 +97,14 @@ def _check(x: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor, c: int):
         raise ValueError(f"depthwise bias must be [{c}], got {tuple(bd.shape)}")
 
 
+def _no_backward(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward (neither has the JAX kernel): call it "
+            "under torch.no_grad() or torch.inference_mode(), or with inputs "
+            "that do not require grad")
+
+
 def _kernel_weights(x: torch.Tensor, wd: torch.Tensor, biases):
     """The kernel's operand layouts: depthwise [C, K*K] in x.dtype (the
     OIHW parameter itself when ``wd`` is its ``permute(2, 3, 1, 0)`` view, as
@@ -146,6 +160,7 @@ def dw_silu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     """
     c = x.shape[-1]
     _check(x, w, b, c)
+    _no_backward("dw_silu_pool", x, w, b)
     if x.device.type == "cpu":
         return dw_silu_pool_reference(x, w, b)
     bsz, h, ww = x.shape[:3]
@@ -176,6 +191,7 @@ def expand_dw_silu_pool(x: torch.Tensor, we: torch.Tensor, be: torch.Tensor,
     _check(x, wd, bd, cmid)
     if tuple(be.shape) != (cmid,):
         raise ValueError(f"expand bias must be [{cmid}], got {tuple(be.shape)}")
+    _no_backward("expand_dw_silu_pool", x, we, be, wd, bd)
     if x.device.type == "cpu":
         return expand_dw_silu_pool_reference(x, we2, be, wd, bd)
     bsz, h, ww = x.shape[:3]

@@ -385,3 +385,79 @@ def test_fused_front_kernel_rejects_what_it_cannot_take(cuda):
     args = _front_args(g, 1, 8, 8, 192, torch.float32, cuda, False)
     with pytest.raises(ValueError, match="C in"):
         fcb.fused_front(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c,f", [(300, 384, 1536), (1000, 256, 1024),
+                                   (77, 256, 96), (12544, 384, 1536)])
+def test_fused_ln_mlp_backward_kernel_matches_plain(cuda, dtype, m, c, f):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = (torch.randn(m, c, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    gy = torch.randn(m, c, generator=g, device=cuda).to(dtype)
+    ls, lb, w1, b1, w2, b2 = _convblock_params(g, c, f, dtype, cuda)
+    args = (x, gy, ls, lb, w1, b1, w2, b2)
+    before = fm.fused_ln_mlp_backward.launches
+    got = fm.fused_ln_mlp_backward(*args)
+    assert fm.fused_ln_mlp_backward.launches == before + 1
+    torch.cuda.synchronize()
+    want = fm.fused_ln_mlp_backward_reference(*args)
+    tol = fm.BWD_TOL[dtype]
+    _close(got[0], want[0], tol["dx"])
+    for a, b, inp in zip(got[1:], want[1:], args[2:]):
+        assert a.shape == b.shape and a.dtype == inp.dtype
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        assert rel <= tol["rel_fro"], rel
+    # the weight sums are the kernel's own fixed-order reduction: the same
+    # bits every run
+    again = fm.fused_ln_mlp_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("flags", [
+    dict(use_fused_mlp=True),
+    dict(use_fused_mlp=True, use_flash_attention=True, use_fused_front=True)],
+    ids=["fused_mlp", "all"])
+def test_convmae_backward_on_the_card_reaches_every_parameter(cuda, flags):
+    """loss.backward() of a card ConvMAE (full width, depth cut to one block
+    a stage) through the kernels' Functions: every parameter, patch_embed1
+    included, gets a finite gradient, within float32 summation order of the
+    plain path's."""
+    from multimodal_isic_tpu_torch.core.rng import generator
+    from multimodal_isic_tpu_torch.models.convmae import ConvMAE, build_convmae
+    cfg = dict(depths=(1, 1, 1), decoder_depth=1, norm_pix_loss=True)
+    plain = build_convmae(generator(1, cuda), **cfg)
+    kern = ConvMAE(**cfg, **flags).to(cuda)
+    kern.load_state_dict(plain.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(12)
+    imgs = torch.randn(2, 224, 224, 3, generator=g, device=cuda)
+    draws = plain.masking(2, 0.75, generator(2, cuda))
+    grads = {}
+    before = fm.fused_ln_mlp_backward.launches
+    for name, model in (("plain", plain), ("kernel", kern)):
+        loss, _, _ = model(imgs, 0.75, masking=draws)
+        loss.backward()
+        grads[name] = dict(model.named_parameters())
+    # one backward launch for each fused block (one a conv stage)
+    assert fm.fused_ln_mlp_backward.launches == before + 2
+    for k, p in grads["kernel"].items():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), k
+        want = grads["plain"][k].grad
+        rel = float((p.grad - want).norm() / want.norm().clamp_min(1e-30))
+        assert rel <= 1e-3, (k, rel)
+    assert float(grads["kernel"]["patch_embed1.proj.weight"].grad.norm()) > 0
+
+
+def test_mbconv_kernels_refuse_autograd(cuda):
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(2, 9, 9, 32, generator=g, device=cuda)
+    we = torch.randn(32, 64, generator=g, device=cuda).requires_grad_()
+    be = torch.randn(64, generator=g, device=cuda)
+    wd = torch.randn(3, 3, 1, 64, generator=g, device=cuda)
+    bd = torch.randn(64, generator=g, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fd.expand_dw_silu_pool(x, we, be, wd, bd)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fd.dw_silu_pool(x.requires_grad_(), wd[..., :32], bd[:32])
+    with torch.inference_mode():
+        y, pool = fd.expand_dw_silu_pool(x, we, be, wd, bd)
+    assert not y.requires_grad and y.shape == (2, 9, 9, 64)
