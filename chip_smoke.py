@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, radiomics and ConvMAE
-slices on one CUDA card.
+slices, and of the first-order and bare-MLP entry points, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,9 +8,9 @@ Drives ``multimodal_isic_tpu_torch`` end to end at the full EfficientNet-B3
 width with random weights from a seed:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the kernels (``csrc/fused_dwconv.cu``, ``csrc/affine_warp.cu``,
-   ``csrc/glcm.cu``, ``csrc/glrlm_runs.cu``, ``csrc/histogram.cu``,
-   ``csrc/connected_components.cu``), one nvcc per source, started together;
+2. builds the kernels (every ``csrc/*.cu``: 12 libraries, with
+   ``csrc/convmae_common.cuh`` 13 sources), one nvcc per source, started
+   together;
 3. holds each fused MBConv kernel against its plain PyTorch version at every
    geometry the B3@380 serving forward gives it, in bf16 and float32;
 4. serves 64 in-memory requests (rendered 450×600 samples, centroid-cropped
@@ -79,7 +79,19 @@ width with random weights from a seed:
    lesion-guided masking against the plain path; trains 20 steps on one
    fixed batch (the loss must fall); times the backward kernel against its
    plain version and bound, the train step in img/s at bs 16 float32 and
-   bs 64 bf16 on the kernel and plain paths, peak memory and a profile.
+   bs 64 bf16 on the kernel and plain paths, peak memory and a profile;
+12. first-order accumulation and the bare fused MLP, each through its own
+   entry point (neither has a caller in the JAX package): the 13
+   first-order calls of one radiomics chunk (64 maps of 450×600, one per
+   derived image) and the bare MLP at ConvViT-Base's conv stages (bs 16
+   float32, bs 128 bf16) and at C2 ≠ C, with the launch counts at 0; holds
+   each result against its plain version (first order: n, min, max and
+   the histogram equal, the sums within ``SUM_TOL`` of their magnitude, and
+   the edge maps: an empty ROI, one pixel, codes above NG and 128, the
+   scalar-load path; the MLP within ``fused_mlp.TOL``), the same bits on a
+   rerun, the first-order stats against ``texture.firstorder_features``
+   and the MLP's gradients on the card; times both against their plain
+   versions and bounds.
 
 Float32 on the card runs in full float32 here: TF32 is off for cuDNN and
 cuBLAS throughout (``torch.backends.cudnn.allow_tf32 = False``).
@@ -125,6 +137,10 @@ MAE_TRAIN_N = 160         # rendered lesions of the MAE training slice
 MAE_EPOCHS = 2
 MAE_LARGE_BATCH = 64      # the bf16 train step (the JAX bench's MAE batch)
 MAE_LEARN_STEPS = 20
+# firstorder_accumulate vs texture.firstorder_features on the same maps
+# (Mean, Variance, MeanAbsoluteDeviation, Uniformity): float32 sums of
+# ~10^5 terms in another order (and, for the features, a float32 mean)
+FEATURE_REL_TOL = 1e-4
 SOURCE = {"dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
           "expand_dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
           "affine_warp_batch": "multimodal_isic_tpu_torch/csrc/affine_warp.cu",
@@ -137,7 +153,10 @@ SOURCE = {"dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
           "flash_attention": "multimodal_isic_tpu_torch/csrc/flash_attention.cu",
           "fused_front": "multimodal_isic_tpu_torch/csrc/fused_front.cu",
           "fused_ln_mlp_backward":
-              "multimodal_isic_tpu_torch/csrc/fused_ln_mlp_bwd.cu"}
+              "multimodal_isic_tpu_torch/csrc/fused_ln_mlp_bwd.cu",
+          "firstorder_accumulate":
+              "multimodal_isic_tpu_torch/csrc/firstorder.cu",
+          "fused_mlp": "multimodal_isic_tpu_torch/csrc/fused_mlp.cu"}
 REPLACES = {"dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:272",
             "expand_dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:326",
             "affine_warp_batch": "multimodal_isic_tpu/ops/pallas_warp.py:190",
@@ -148,7 +167,9 @@ REPLACES = {"dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:272",
             "fused_ln_mlp": "multimodal_isic_tpu/ops/fused_mlp.py:196",
             "flash_attention": "multimodal_isic_tpu/ops/attention.py:93",
             "fused_front": "multimodal_isic_tpu/ops/fused_convblock.py:146",
-            "fused_ln_mlp_backward": "multimodal_isic_tpu/ops/fused_mlp.py:312"}
+            "fused_ln_mlp_backward": "multimodal_isic_tpu/ops/fused_mlp.py:312",
+            "firstorder_accumulate": "multimodal_isic_tpu/ops/pallas_hist.py:175",
+            "fused_mlp": "multimodal_isic_tpu/ops/fused_mlp.py:98"}
 RAD_KERNELS = ("glcm_matrices", "glrlm_runs", "joint_histogram",
                "connected_components")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
@@ -953,13 +974,15 @@ def radiomics_path(device, rgb, masks):
 def rad_bound_ms(name, m, h, w):
     """(bytes ms, operations ms) of one call at M maps of H×W: inputs read
     once, outputs written once (int32 levels, 1-byte masks, int32 codes and
-    labels, float32 histograms); about 10 32-bit integer operations per
-    element, counted at the float32 CUDA-core rate."""
+    labels, float32 histograms and stats; the first-order image float32);
+    about 10 32-bit integer operations per element, counted at the float32
+    CUDA-core rate."""
     px = m * h * w
     nbytes = {"glcm_matrices": px * 5 + m * 4 * NG * NG * 4,
               "glrlm_runs": px * 5 + px * 4 * 4,
               "joint_histogram": 4 * px * 8 + 4 * m * NG * MAX_LEN * 4,
-              "connected_components": px * 5 + px * 4}[name]
+              "connected_components": px * 5 + px * 4,
+              "firstorder_accumulate": px * 8 + m * (9 + NG) * 4}[name]
     elems = 4 * px if name in ("glrlm_runs", "joint_histogram") else px
     return nbytes / HBM_BPS * 1e3, 10 * elems / F32_FLOPS * 1e3
 
@@ -1807,6 +1830,256 @@ def time_mae_train(device, train_ds):
     return tot + [None]
 
 
+# -------------------------------------------- first order and the bare MLP
+
+def firstorder_inputs(device, rgb, masks):
+    """The radiomics chunk's first-order calls: for each of the 13 derived
+    images, image [M, H·W] float32 and levels [M, H·W] int32 (M = 64 maps of
+    450×600), as the extractor computes them."""
+    from multimodal_isic_tpu_torch.analysis.radiomics import (
+        RadiomicsExtractor, full_float32)
+    from multimodal_isic_tpu_torch.ops import filters as FB
+    from multimodal_isic_tpu_torch.ops import texture as T
+    ex = RadiomicsExtractor(device=device)
+    with torch.no_grad(), full_float32():
+        chans, m4, _ = ex._prep(torch.from_numpy(rgb).to(device),
+                                torch.from_numpy(masks).to(device))
+        bank = FB.filter_bank(chans)
+        m = chans.shape[0]
+        return {t: (img.float().reshape(m, -1).contiguous(),
+                    T.discretize(img, m4, 10.0)[0].reshape(m, -1).contiguous())
+                for t, img in bank.items()}
+
+
+def _firstorder_edge_cases(device, n=SRC_HW[0] * SRC_HW[1]):
+    """(label, image, levels) of full-frame edge maps: an empty ROI, one
+    valid pixel, codes in (NG, 128] and above 128 (negative codes too), and
+    the scalar-load path (an odd row length, rows off a 16-byte boundary)."""
+    g = torch.Generator(device=device).manual_seed(SEED + 50)
+    x = torch.randn(4, n + 1, generator=g, device=device) * 40 + 90
+    lv = torch.randint(-3, 200, (4, n + 1), generator=g, device=device,
+                       dtype=torch.int32)
+    lv[0] = 0
+    lv[1] = 0
+    lv[1, n // 3] = 9
+    flat_x, flat_lv = x.reshape(-1)[1:], lv.reshape(-1)[1:]
+    return [("empty, one pixel, high codes", x[:3, :n].contiguous(),
+             lv[:3, :n].contiguous()),
+            ("odd rows", x[:, :n - 1].contiguous(), lv[:, :n - 1].contiguous()),
+            ("rows off 16 bytes", flat_x[:3 * n].view(3, n),
+             flat_lv[:3 * n].view(3, n))]
+
+
+def mlp_geometries():
+    """(dtype, M, C, F, C2) of the bare MLP's calls: ConvViT-Base's conv
+    stages 1 (C 256 → F 1024 → 256, M = B·56²) and 2 (384 → 1536 → 384,
+    M = B·28²) at bs 16 float32 and bs 128 bf16, and C2 ≠ C at an M that is
+    no multiple of either row tile."""
+    f32, bf = torch.float32, torch.bfloat16
+    return [(f32, VAL_BATCH * 56 * 56, 256, 1024, 256),
+            (f32, VAL_BATCH * 28 * 28, 384, 1536, 384),
+            (bf, LAT_BATCH * 56 * 56, 256, 1024, 256),
+            (bf, LAT_BATCH * 28 * 28, 384, 1536, 384),
+            (f32, 1000, 128, 512, 256), (bf, 1000, 128, 512, 256)]
+
+
+def _mlp_args(geo, device, g):
+    dtype, m, c, f, c2 = geo
+    rn = lambda *s: torch.randn(*s, generator=g, device=device)
+    return (rn(m, c).to(dtype), (rn(c, f) / c ** 0.5).to(dtype),
+            (0.1 * rn(f)).to(dtype), (rn(f, c2) / f ** 0.5).to(dtype),
+            (0.1 * rn(c2)).to(dtype))
+
+
+def mlp_bound_ms(dtype, m, c, f, c2):
+    """(bytes ms, operations ms) of one bare-MLP call: x, both weights, the
+    biases and the output moved once; 2·M·(C·F + F·C2) operations at the
+    rate of their operands' type."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (m * c + c * f + f * c2 + f + c2 + m * c2) * esz
+    ops = 2 * m * (c * f + f * c2)
+    return (nbytes / HBM_BPS * 1e3,
+            ops_ms(bf16=ops) if dtype == torch.bfloat16 else ops_ms(f32=ops))
+
+
+def firstorder_and_mlp(device, fo_inputs):
+    """Phase 12: the two kernels' own entry points, driven once with the
+    launch counts at 0 (the 13 first-order calls of a radiomics chunk; the
+    bare MLP at every geometry), then each result held against its plain
+    version (first order: n, min, max and hist equal, the sums within
+    SUM_TOL of their magnitude; the MLP within ``fused_mlp.TOL``), the same
+    bits on a rerun, the first-order edge cases, the first-order stats
+    against the port's own ``firstorder_features``, and the MLP's gradients
+    → (launches, worst |kernel − plain| per kernel)."""
+    from multimodal_isic_tpu_torch.ops import fused_mlp as FM
+    from multimodal_isic_tpu_torch.ops import histogram as Hm
+    from multimodal_isic_tpu_torch.ops import texture as T
+    g = torch.Generator(device=device).manual_seed(SEED + 51)
+    mlp_args = [_mlp_args(geo, device, g) for geo in mlp_geometries()]
+    torch.cuda.synchronize()
+
+    Hm.firstorder_accumulate.launches = 0
+    FM.fused_mlp.launches = 0
+    fo_out = {t: Hm.firstorder_accumulate(*a) for t, a in fo_inputs.items()}
+    mlp_out = [FM.fused_mlp(*a) for a in mlp_args]
+    torch.cuda.synchronize()
+    launches = {"firstorder_accumulate": Hm.firstorder_accumulate.launches,
+                "fused_mlp": FM.fused_mlp.launches}
+    print(f"phase 12 main path: {len(fo_inputs)} first-order calls of one "
+          f"radiomics chunk, {len(mlp_args)} bare-MLP calls; launches "
+          f"{launches}")
+    if launches != {"firstorder_accumulate": len(fo_inputs),
+                    "fused_mlp": len(mlp_args)}:
+        raise AssertionError(f"phase 12 launches {launches}")
+
+    failures = []
+    worst = {"firstorder_accumulate": 0.0, "fused_mlp": 0.0}
+    print(f"firstorder_accumulate vs plain: n, min, max and hist equal, "
+          f"each sum within SUM_TOL {Hm.SUM_TOL} of its magnitude sum")
+    cases = [(t, *fo_inputs[t], fo_out[t]) for t in fo_inputs]
+    cases += [(label, x, lv, Hm.firstorder_accumulate(x, lv))
+              for label, x, lv in _firstorder_edge_cases(device)]
+    for label, x, lv, got in cases:
+        want = Hm.firstorder_accumulate_reference(x, lv)
+        again = Hm.firstorder_accumulate(x, lv)
+        exact, ratio = Hm.firstorder_disagreement(x, lv, got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if label.startswith("empty"):  # map 0: the sentinels, sums 0
+            big = torch.tensor(3.4e38, device=device)
+            st = got[0][0]
+            exact = exact and bool(st[2] == big and st[3] == -big
+                                   and not st[list(Hm.SUMS)].any())
+        err = float((got[0] - want[0]).abs()[:, list(Hm.SUMS)].max())
+        worst["firstorder_accumulate"] = max(worst["firstorder_accumulate"],
+                                             err)
+        ok = exact and ratio <= 1.0 and same
+        print(f"check firstorder_accumulate {label} {tuple(x.shape)}: exact "
+              f"parts equal {exact}, worst sum error {ratio:.3e} of its "
+              f"tolerance (max_abs_err {err:.3e}), same bits on a rerun "
+              f"{same} ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            failures.append(f"firstorder_accumulate {label}")
+
+    # the stats against the port's own first-order features ("original")
+    x, lv = fo_inputs["original"]
+    stats, hist = fo_out["original"]
+    m = x.shape[0]
+    feats = T.firstorder_features(x.view(m, *SRC_HW),
+                                  (lv > 0).view(m, *SRC_HW).to(torch.uint8),
+                                  10.0)
+    n = stats[:, 0].clamp_min(1.0)
+    derived = {"Mean": stats[:, 1] / n, "Variance": stats[:, 5] / n,
+               "MeanAbsoluteDeviation": stats[:, 8] / n,
+               "Uniformity": ((hist / n[:, None]) ** 2).sum(1)}
+    exact = (torch.equal(stats[:, 2], feats["Minimum"])
+             and torch.equal(stats[:, 3], feats["Maximum"]))
+    rel = {k: float(((v - feats[k]).abs() / feats[k].abs().clamp_min(1e-12))
+                    .max()) for k, v in derived.items()}
+    ok = exact and max(rel.values()) <= FEATURE_REL_TOL
+    print(f"firstorder_accumulate vs texture.firstorder_features (original, "
+          f"{m} maps): Minimum/Maximum equal {exact}; relative error "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (tolerance {FEATURE_REL_TOL}; {'ok' if ok else 'FAIL'})")
+    if not ok:
+        failures.append("firstorder_accumulate vs firstorder_features")
+
+    print("fused_mlp vs plain tolerance |err| <= atol + rtol*|plain| "
+          "(atol, rtol): " + ", ".join(f"{str(dt)[6:]} {t}"
+                                       for dt, t in FM.TOL.items()))
+    for geo, args, got in zip(mlp_geometries(), mlp_args, mlp_out):
+        dtype, mm, c, f, c2 = geo
+        want = FM.fused_mlp_reference(*args)
+        again = FM.fused_mlp(*args)
+        torch.cuda.synchronize()
+        err, ok = _allclose_err(got, want, *FM.TOL[dtype])
+        same = torch.equal(got, again)
+        fin = bool(torch.isfinite(got).all()) and got.shape == (mm, c2)
+        ok = ok and same and fin
+        worst["fused_mlp"] = max(worst["fused_mlp"], err)
+        label = f"fused_mlp M {mm} C {c} F {f} C2 {c2} {str(dtype)[6:]}"
+        print(f"check {label}: max_abs_err {err:.3e}, finite [M, C2] {fin}, "
+              f"same bits on a rerun {same} ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            failures.append(label)
+        del want, again
+    del mlp_out
+
+    # the kernel's result stays on the autograd graph: its gradients are
+    # the plain version's (the backward recomputes it, as the JAX _bwd does)
+    leaves = [t.float().requires_grad_() for t in mlp_args[4]]
+    gy = torch.randn(1000, 256, generator=g, device=device)
+    out = FM.fused_mlp(*leaves)
+    got = torch.autograd.grad(out, leaves, gy)
+    want = torch.autograd.grad(FM.fused_mlp_reference(*leaves), leaves, gy)
+    same = out.grad_fn is not None and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    print(f"fused_mlp under autograd on the card: grad_fn "
+          f"{type(out.grad_fn).__name__}, gradients equal to the plain "
+          f"version's {same}")
+    if not same:
+        failures.append("fused_mlp gradients")
+    if failures:
+        raise AssertionError(f"phase 12 kernel != plain: {failures}")
+    return launches, worst
+
+
+def time_firstorder_and_mlp(device, fo_inputs):
+    """The first-order kernel at the radiomics chunk's call (the original
+    image, 64 maps of 450×600) and the bare MLP at the four conv-stage
+    geometries, each against its plain version and bound (CUDA events,
+    medians; no single PyTorch call computes either function) → name →
+    (ms, plain ms, bound ms, bytes ms, operations ms, library ms).  The
+    MLP's numbers are those of a ConvViT-Base encoder forward at bs 128
+    bf16: two calls at stage 1 and two at stage 2."""
+    from multimodal_isic_tpu_torch.ops import fused_mlp as FM
+    from multimodal_isic_tpu_torch.ops import histogram as Hm
+    from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
+    out = {}
+    x, lv = fo_inputs["original"]
+    m = x.shape[0]
+    runs = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = (Hm.firstorder_accumulate if which == "kernel"
+              else Hm.firstorder_accumulate_reference)
+        runs[which].append(timeit_closed(lambda: fn(x, lv), iters=20,
+                                         repeats=3))
+    med = {k: min(r["median"] for r in v) * 1e3 for k, v in runs.items()}
+    b_bytes, b_ops = rad_bound_ms("firstorder_accumulate", m, *SRC_HW)
+    bound = max(b_bytes, b_ops)
+    print(f"time firstorder_accumulate M{m} {SRC_HW[0]}x{SRC_HW[1]}: kernel "
+          f"{med['kernel']:.4f} ms, plain {med['plain']:.4f} ms "
+          f"({med['plain'] / med['kernel']:.1f}x), library none; bound "
+          f"{bound:.4f} ms (bytes {b_bytes:.4f}, operations {b_ops:.4f}): "
+          f"{bound / med['kernel']:.1%} of it; 13 calls a chunk")
+    out["firstorder_accumulate"] = (med["kernel"], med["plain"], bound,
+                                    b_bytes, b_ops, None)
+
+    g = torch.Generator(device=device).manual_seed(SEED + 52)
+    tot = [0.0] * 5
+    for geo in mlp_geometries()[:4]:
+        args = _mlp_args(geo, device, g)
+        runs = {"kernel": [], "plain": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = FM.fused_mlp if which == "kernel" else FM.fused_mlp_reference
+            runs[which].append(timeit_closed(lambda: fn(*args), iters=10,
+                                             repeats=3))
+        med = {k: min(r["median"] for r in v) * 1e3 for k, v in runs.items()}
+        b_bytes, b_ops = mlp_bound_ms(*geo)
+        bound = max(b_bytes, b_ops)
+        dtype, mm, c, f, c2 = geo
+        print(f"time fused_mlp M {mm} C {c} F {f} C2 {c2} {str(dtype)[6:]}: "
+              f"kernel {med['kernel']:.4f} ms, plain (addmm, GELU, addmm) "
+              f"{med['plain']:.4f} ms ({med['plain'] / med['kernel']:.2f}x), "
+              f"library none; bound {bound:.4f} ms (bytes {b_bytes:.4f}, "
+              f"operations {b_ops:.4f}): {bound / med['kernel']:.1%} of it")
+        if dtype == torch.bfloat16:  # an encoder forward: 2 calls a stage
+            for i, v in enumerate((med["kernel"], med["plain"], bound,
+                                   b_bytes, b_ops)):
+                tot[i] += 2 * v
+        del args
+    out["fused_mlp"] = (*tot, None)
+    return out
+
 def to_device_batch(reqs, device, sl=slice(None)):
     return {k: torch.from_numpy(np.ascontiguousarray(v[sl])).to(device)
             for k, v in reqs.items()}
@@ -1851,7 +2124,8 @@ def main() -> int:
             "histogram": histogram._lib, "connected_components": cc._lib,
             "fused_ln_mlp": fused_mlp._lib, "flash_attention": attention._lib,
             "fused_front": fused_convblock._lib,
-            "fused_ln_mlp_bwd": fused_mlp._bwd_lib}
+            "fused_ln_mlp_bwd": fused_mlp._bwd_lib,
+            "firstorder": histogram._fo_lib, "fused_mlp": fused_mlp._mlp_lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda load: load(), libs.values()))
     print(f"build: {len(libs)} kernel libraries in "
@@ -2003,6 +2277,7 @@ def main() -> int:
 
     # 10. ConvMAE: kernels vs plain, latent extraction, the validation
     # forward, times
+    fo_chunk = (rgb[:RAD_CHUNK].copy(), masks[:RAD_CHUNK].copy())
     del rgb, masks
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2028,13 +2303,27 @@ def main() -> int:
     mae_times["fused_ln_mlp_backward"] = time_mae_train(device, mae_ds)
     print(f"phase 11 (ConvMAE training) {time.perf_counter() - t11:.1f} s; "
           f"wall {time.perf_counter() - t_start:.1f} s")
+    del mae_ds
+    torch.cuda.empty_cache()
+
+    # 12. first-order accumulation and the bare MLP: their entry points,
+    # kernels vs plain, times
+    t12 = time.perf_counter()
+    fo_inputs = firstorder_inputs(device, *fo_chunk)
+    fo_launches, fo_worst = firstorder_and_mlp(device, fo_inputs)
+    launches.update(fo_launches)
+    worst_err.update(fo_worst)
+    fo_times = time_firstorder_and_mlp(device, fo_inputs)
+    print(f"phase 12 (first order, bare MLP) {time.perf_counter() - t12:.1f} "
+          f"s; wall {time.perf_counter() - t_start:.1f} s")
 
     med, bound, b_bytes, b_ops = warp_times[BATCH]
     totals["affine_warp_batch"] = [med["kernel"], med["plain"], bound, b_bytes,
                                    b_ops]
     library = {"affine_warp_batch": med["grid_sample"]}
     for name, (ker, pln, bnd, bb, bo, lib) in (*rad_times.items(),
-                                               *mae_times.items()):
+                                               *mae_times.items(),
+                                               *fo_times.items()):
         totals[name] = [ker, pln, bnd, bb, bo]
         library[name] = lib
     print(json.dumps({"kernels": [
@@ -2047,7 +2336,7 @@ def main() -> int:
          "library_ms": library.get(name)}
         for name in ("expand_dw_silu_pool", "dw_silu_pool",
                      "affine_warp_batch") + RAD_KERNELS + MAE_KERNELS
-        + ("fused_ln_mlp_backward",)]}))
+        + ("fused_ln_mlp_backward", "firstorder_accumulate", "fused_mlp")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,13 @@
-"""LayerNorm → 1×1 C→F → GELU → 1×1 F→C → residual, in one kernel.
+"""The conv-stage MLPs of ConvMAE's ``ConvBlock``, each in one kernel:
+LayerNorm → 1×1 C→F → GELU → 1×1 F→C → residual (:func:`fused_ln_mlp`), and
+the bare 1×1 C→F → GELU → 1×1 F→C2 (:func:`fused_mlp`).
 
-Counterpart of ``multimodal_isic_tpu/ops/fused_mlp.py::fused_ln_mlp``
-(forward, :162-213): the second half of ConvMAE's ``ConvBlock`` over rows
-``x [M, C]``.  The public function keeps the JAX layouts: ``w1 [C, F]``,
-``w2 [F, C]`` (the model passes views of its ``[out, in, 1, 1]`` conv
-weights, which the kernel reads in place when they already are in the
-compute dtype).
+The LayerNorm MLP is the counterpart of ``multimodal_isic_tpu/ops/
+fused_mlp.py::fused_ln_mlp`` (forward, :162-213): the second half of
+ConvMAE's ``ConvBlock`` over rows ``x [M, C]``.  The public function keeps
+the JAX layouts: ``w1 [C, F]``, ``w2 [F, C]`` (the model passes views of its
+``[out, in, 1, 1]`` conv weights, which the kernel reads in place when they
+already are in the compute dtype).
 
 Rounding points, those of the TPU kernel (and, in the plain version, made
 explicitly): LayerNorm with float32 fast-variance statistics
@@ -20,10 +22,26 @@ the JAX model does).
   ``csrc/fused_ln_mlp.cu`` (built with nvcc at first use), or raises.
 - On a CPU tensor it runs :func:`fused_ln_mlp_reference`.
 
-The backward is the counterpart of the TPU kernel's (``fused_mlp.py:239-347``):
-:func:`fused_ln_mlp_backward` launches ``csrc/fused_ln_mlp_bwd.cu`` on the
-card and runs :func:`fused_ln_mlp_backward_reference` on the CPU.  Both
-recompute the forward from x; neither is autograd through the plain forward.
+The bare MLP is the counterpart of ``fused_mlp.py::fused_mlp`` (:116, the
+Pallas kernel at :98): x [M, C], w1 [C, F], b1 [F], w2 [F, C2], b2 [C2], C,
+F and C2 multiples of 128 (``ValueError`` otherwise).  Rounding points:
+``x·w1`` accumulated in float32 plus ``b1``, rounded to x.dtype; exact-erf
+GELU in float32 (:func:`gelu_f32`; the TPU kernel took the A&S 7.1.26 erf,
+|err| 1.5e-7, for want of a Mosaic erf lowering; the card's kernel takes
+``erff`` through ``csrc/convmae_common.cuh``), rounded; ``a·w2`` in float32
+plus ``b2``, rounded.  The weights are read in x.dtype.  On a CUDA tensor
+:func:`fused_mlp` launches ``csrc/fused_mlp.cu`` or raises; on a CPU tensor
+it runs :func:`fused_mlp_reference`.  Its backward recomputes the plain
+version under autograd, as the JAX ``_bwd`` recomputes ``_reference_mlp``
+(:128-135): it has no kernel, in JAX either.  Launches are counted in
+``fused_mlp.launches``.  No caller in the JAX package: it is an entry point
+of its own.
+
+The LayerNorm MLP's backward is the counterpart of the TPU kernel's
+(``fused_mlp.py:239-347``): :func:`fused_ln_mlp_backward` launches
+``csrc/fused_ln_mlp_bwd.cu`` on the card and runs
+:func:`fused_ln_mlp_backward_reference` on the CPU.  Both recompute the
+forward from x; neither is autograd through the plain forward.
 The public :func:`fused_ln_mlp` goes through a ``torch.autograd.Function``
 that pairs the two, so a result on the card stays on the autograd graph.
 Launches are counted in ``fused_ln_mlp.launches`` and
@@ -306,3 +324,144 @@ def fused_ln_mlp(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor,
 
 fused_ln_mlp.launches = 0
 fused_ln_mlp_backward.launches = 0
+
+
+# ------------------------------------------------------------- the bare MLP
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+# C2 the kernel is built for: the [rows, C2] accumulator of a row block
+# stays in registers across F, so registers bound C2; C is bounded by shared
+# memory (:func:`fused_mlp_smem_bytes` <= SMEM_LIMIT).
+MLP_C2 = (128, 256, 384, 512)
+_MLP_TILE = {torch.float32: (32, 4), torch.bfloat16: (64, 8)}  # (rows, pad)
+_FC = 32  # the kernel's F chunk
+
+
+def fused_mlp_reference(x, w1, b1, w2, b2):
+    """Plain version of :func:`fused_mlp`, with the kernel's rounding points
+    (matmuls on float32 copies of the x.dtype operands: products of bf16
+    values are exact in float32)."""
+    dt = x.dtype
+    h = (x.float() @ w1.to(dt).float() + b1.float()).to(dt)
+    a = gelu_f32(h)
+    return (a.float() @ w2.to(dt).float() + b2.float()).to(dt)
+
+
+def fused_mlp_smem_bytes(c: int, c2: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block of ``csrc/fused_mlp.cu`` (its ``Smem``):
+    the x rows and a w1 chunk [rows + FC, C + pad], a w2 chunk [C2, FC +
+    pad] and the GELU tile [rows, FC + pad], each 16-byte aligned."""
+    rows, pad = _MLP_TILE[dtype]
+    esz = torch.finfo(dtype).bits // 8
+
+    def a16(n):
+        return (n + 15) & ~15
+    return (a16(rows * (c + pad) * esz) + a16(_FC * (c + pad) * esz)
+            + a16(c2 * (_FC + pad) * esz) + a16(rows * (_FC + pad) * esz))
+
+
+def check_mlp_kernel_shape(c: int, c2: int, dtype: torch.dtype) -> None:
+    """Raise ``ValueError`` where the card's kernel cannot take C, C2."""
+    if c2 not in MLP_C2:
+        raise ValueError(f"fused_mlp: the kernel takes C2 in {MLP_C2} (its "
+                         f"accumulator lives in registers), got C2={c2}")
+    smem = fused_mlp_smem_bytes(c, c2, dtype)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fused_mlp: C={c}, C2={c2} in {dtype} need {smem} "
+                         f"B of shared memory, more than one block's "
+                         f"{SMEM_LIMIT} B")
+
+
+@functools.cache
+def _mlp_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_mlp")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    for sfx in _SUFFIX.values():
+        fn = getattr(lib, f"fused_mlp_{sfx}")
+        fn.argtypes = [vp] * 6 + [i32] * 4 + [vp]
+        fn.restype = i32
+    lib.fused_mlp_error_string.argtypes = [i32]
+    lib.fused_mlp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_mlp(x, w1, b1, w2, b2):
+    if x.dim() != 2:
+        raise ValueError(f"fused_mlp: x must be [M, C], got shape "
+                         f"{tuple(x.shape)}")
+    c = x.shape[1]
+    if w1.dim() != 2 or w2.dim() != 2 or w1.shape[0] != c \
+            or w2.shape[0] != w1.shape[1]:
+        raise ValueError(f"fused_mlp: w1 must be [{c}, F] and w2 [F, C2], "
+                         f"got {tuple(w1.shape)} and {tuple(w2.shape)}")
+    f, c2 = w2.shape
+    if tuple(b1.shape) != (f,) or tuple(b2.shape) != (c2,):
+        raise ValueError(f"fused_mlp: b1 must be [{f}] and b2 [{c2}], got "
+                         f"{tuple(b1.shape)} and {tuple(b2.shape)}")
+    if c % 128 or f % 128 or c2 % 128:
+        raise ValueError(f"fused_mlp needs lane-aligned dims (multiples of "
+                         f"128), got C={c}, F={f}, C2={c2}")
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_mlp: tensors must be on the CPU or a CUDA "
+                         f"device, got {x.device}")
+    if x.device.type == "cuda":
+        check_mlp_kernel_shape(c, c2, x.dtype)
+
+
+def _mlp_kernel(x, w1, b1, w2, b2):
+    m, c = x.shape
+    f, c2 = w2.shape
+    x = _aligned(x)
+    w1k = w1.t().to(x.dtype).contiguous()   # [F, C]
+    w2k = w2.t().to(x.dtype).contiguous()   # [C2, F]
+    b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
+    _on(x.device, w1k, w2k, b1f, b2f)
+    out = torch.empty((m, c2), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    lib = _mlp_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib, f"fused_mlp_{_SUFFIX[x.dtype]}")(
+            x.data_ptr(), w1k.data_ptr(), b1f.data_ptr(), w2k.data_ptr(),
+            b2f.data_ptr(), out.data_ptr(), m, c, f, c2, stream)
+    if rc != 0:
+        raise RuntimeError("fused_mlp launch failed: "
+                           f"{lib.fused_mlp_error_string(rc).decode()}")
+    fused_mlp.launches += 1
+    return out
+
+
+class _FusedMlp(torch.autograd.Function):
+    """Forward: the kernel, or the plain version on the CPU.  Backward:
+    :func:`fused_mlp_reference` recomputed from the saved inputs under
+    autograd (the JAX ``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        if x.device.type == "cpu":
+            return fused_mlp_reference(x, w1, b1, w2, b2)
+        return _mlp_kernel(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = fused_mlp_reference(*leaves)
+            return torch.autograd.grad(out, leaves, g)
+
+
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """``gelu(x·w1 + b1)·w2 + b2`` over rows: x [M, C] (float32 or
+    bfloat16), w1 [C, F], b1 [F], w2 [F, C2], b2 [C2] → [M, C2] in x.dtype;
+    the [M, F] intermediate exists only inside the kernel.  Differentiable
+    (module docstring)."""
+    _check_mlp(x, w1, b1, w2, b2)
+    return _FusedMlp.apply(x, w1, b1, w2, b2)
+
+
+fused_mlp.launches = 0

@@ -237,6 +237,59 @@ def test_joint_histogram_kernel_rejects_what_it_cannot_take(cuda):
         hist.joint_histogram(a.t(), a.t(), 4, 4)
 
 
+
+def _firstorder_maps(g, b, n, offset, device):
+    """[b, n] float32 image and int32 levels (rows ``offset`` elements off a
+    16-byte boundary when offset > 0): map 0 an empty ROI, map 1 one valid
+    pixel, the rest ~60% valid with codes 1..64, codes in (64, 128], codes
+    above 128 and negative codes."""
+    x = (torch.randn(b * n + offset, generator=g, device=device) * 40
+         + 90)[offset:].view(b, n)
+    lv = torch.randint(-3, 200, (b * n + offset,), generator=g, device=device,
+                       dtype=torch.int32)[offset:].view(b, n)
+    keep = torch.rand(b, n, generator=g, device=device) < 0.6
+    lv = torch.where(keep, lv, 0)
+    lv[0] = 0
+    if b > 1:
+        lv[1] = 0
+        lv[1, n // 2] = 5
+    return x, lv
+
+
+@pytest.mark.parametrize("b,n,offset", [(3, 4800, 0), (64, 270000, 0),
+                                        (2, 4801, 0), (3, 4096, 1),
+                                        (1, 3, 0)])
+def test_firstorder_kernel_matches_plain(cuda, b, n, offset):
+    """n, min, max and hist equal to the plain version, the sums within
+    SUM_TOL of their magnitude; a rerun gives the same bits.  ``offset`` and
+    odd n take the scalar-load path."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x, lv = _firstorder_maps(g, b, n, offset, cuda)
+    before = hist.firstorder_accumulate.launches
+    got = hist.firstorder_accumulate(x, lv)
+    torch.cuda.synchronize()
+    assert hist.firstorder_accumulate.launches == before + 1
+    assert got[0].shape == (b, 9) and got[1].shape == (b, hist.NG)
+    want = hist.firstorder_accumulate_reference(x, lv)
+    exact, ratio = hist.firstorder_disagreement(x, lv, got, want)
+    assert exact and ratio <= 1.0, ratio
+    big = torch.tensor(3.4e38, device=cuda)  # map 0 is empty: the sentinels
+    assert got[0][0, 2] == big and got[0][0, 3] == -big
+    again = hist.firstorder_accumulate(x, lv)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_firstorder_kernel_rejects_what_it_cannot_take(cuda):
+    x = torch.zeros(4, 8, device=cuda)
+    lv = torch.ones(4, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # not contiguous
+        hist.firstorder_accumulate(x.t(), lv.t())
+    with pytest.raises(ValueError):  # int64 levels
+        hist.firstorder_accumulate(x, lv.long())
+    with pytest.raises(ValueError):  # one device
+        hist.firstorder_accumulate(x, lv.cpu())
+
+
 def _serpentine(h, w, device):
     lv = torch.full((h, w), 2, dtype=torch.int32)
     snake = torch.zeros((h, w), dtype=torch.bool)
@@ -411,6 +464,58 @@ def test_fused_ln_mlp_backward_kernel_matches_plain(cuda, dtype, m, c, f):
     # bits every run
     again = fm.fused_ln_mlp_backward(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+
+def _mlp_args(g, m, c, f, c2, dtype, device):
+    x = torch.randn(m, c, generator=g, device=device).to(dtype)
+    w1 = (torch.randn(c, f, generator=g, device=device) / c ** 0.5).to(dtype)
+    b1 = (0.1 * torch.randn(f, generator=g, device=device)).to(dtype)
+    w2 = (torch.randn(f, c2, generator=g, device=device) / f ** 0.5).to(dtype)
+    b2 = (0.1 * torch.randn(c2, generator=g, device=device)).to(dtype)
+    return x, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c,f,c2", [(300, 128, 256, 128),
+                                      (1000, 256, 1024, 256),
+                                      (777, 384, 1536, 384),
+                                      (1000, 128, 512, 256),
+                                      (5, 512, 128, 512),
+                                      (33, 256, 384, 128)])
+def test_fused_mlp_kernel_matches_plain(cuda, dtype, m, c, f, c2):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    args = _mlp_args(g, m, c, f, c2, dtype, cuda)
+    before = fm.fused_mlp.launches
+    got = fm.fused_mlp(*args)
+    assert fm.fused_mlp.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (m, c2)
+    _close(got, fm.fused_mlp_reference(*args), fm.TOL[dtype])
+    assert torch.equal(got, fm.fused_mlp(*args))  # the same bits on a rerun
+
+
+def test_fused_mlp_kernel_stays_on_the_autograd_graph(cuda):
+    g = torch.Generator(device=cuda).manual_seed(16)
+    args = [t.requires_grad_() for t in
+            _mlp_args(g, 200, 128, 512, 256, torch.float32, cuda)]
+    gy = torch.randn(200, 256, generator=g, device=cuda)
+    out = fm.fused_mlp(*args)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, args, gy)
+    want = torch.autograd.grad(fm.fused_mlp_reference(*args), args, gy)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)  # both recompute the plain version
+
+
+def test_fused_mlp_kernel_rejects_what_it_cannot_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(17)
+    with pytest.raises(ValueError, match="C2 in"):  # accumulator > registers
+        fm.fused_mlp(*_mlp_args(g, 8, 128, 128, 640, torch.float32, cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        fm.fused_mlp(*_mlp_args(g, 8, 640, 128, 512, torch.float32, cuda))
+    with pytest.raises(ValueError, match="lane-aligned"):
+        fm.fused_mlp(*_mlp_args(g, 8, 192, 256, 128, torch.float32, cuda))
 
 
 @pytest.mark.parametrize("flags", [
