@@ -60,9 +60,10 @@ width with random weights from a seed:
    the masked validation forward (decoder 512 × 8, bs 16 float32, mask
    0.75, norm-pix loss) with all three kernels and with none on one set of
    masking draws; times each kernel against its plain version, bound and
-   (attention) ``F.scaled_dot_product_attention``, the encoder's img/s on
-   the three configurations, the validation forward, peak memory and
-   profiles;
+   (attention) ``F.scaled_dot_product_attention``, attention also at the
+   validation forward's float32 shapes and as device time (CUDA-graph
+   replays, beside the eager calls), the encoder's img/s on the three
+   configurations, the validation forward, peak memory and profiles;
 11. ConvMAE training (the slice's configuration: bs 16 float32, mask 0.75,
    norm-pix loss, AdamW enc 1e-5 / dec 1e-3, betas (0.9, 0.95), wd 0.05,
    the fused LN-MLP on): holds the fused LN-MLP backward kernel against its
@@ -77,9 +78,10 @@ width with random weights from a seed:
    best-validation checkpoint into a fresh model and optimizer and checks
    its validation loss bit for bit; runs one step with all three kernels and
    lesion-guided masking against the plain path; trains 20 steps on one
-   fixed batch (the loss must fall); times the backward kernel against its
-   plain version and bound, the train step in img/s at bs 16 float32 and
-   bs 64 bf16 on the kernel and plain paths, peak memory and a profile;
+   fixed batch (the loss must fall); times the backward kernels against
+   their plain version and bound, with each kernel's device time and the
+   workspace size, the train step in img/s at bs 16 float32 and bs 64 bf16
+   on the kernel and plain paths, peak memory and a profile;
 12. first-order accumulation and the bare fused MLP, each through its own
    entry point (neither has a caller in the JAX package): the 13
    first-order calls of one radiomics chunk (64 maps of 450×600, one per
@@ -702,6 +704,49 @@ def profile_steps(fn, label, steps=3):
           f"launches), busy share {busy / wall:.3f}; by family: "
           + ", ".join(f"{k} {v / steps:.2f} ms"
                       for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
+
+
+def kernel_breakdown(fn, label, pattern, calls=3):
+    """Device ms a launch of each kernel whose name matches ``pattern``, where
+    one call of ``fn`` launches each of them once: torch.profiler traces one
+    call at a time (up to 3·``calls`` traces) and the mean is over the first
+    ``calls`` traces that recorded every kernel of the call once, so no
+    launch the trace lost is averaged over.  Prints how many traces were
+    complete."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    traces = []
+    for _ in range(3 * calls):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.events():
+            hit = re.search(pattern, e.name)
+            if e.device_type == DeviceType.CUDA and hit:
+                per.setdefault(hit.group(0), []).append(
+                    e.time_range.elapsed_us() / 1e3)
+        traces.append(per)
+        names = set().union(*traces)
+        full = [t for t in traces
+                if set(t) == names and all(len(v) == 1 for v in t.values())]
+        if len(full) >= calls:
+            break
+    full = full[:calls]
+    if not full:
+        print(f"kernels of {label}: no trace of {len(traces)} recorded every "
+              "launch of a call")
+        return
+    ms = {k: sum(t[k][0] for t in full) / len(full) for k in names}
+    print(f"kernels of {label}, device ms a launch (sum "
+          f"{sum(ms.values()):.4f}; mean over {len(full)} complete traces of "
+          f"{len(traces)}): " + ", ".join(
+              f"{k} {v:.4f}"
+              for k, v in sorted(ms.items(), key=lambda kv: -kv[1])))
 
 
 def time_training(device, train_ds):
@@ -1361,15 +1406,18 @@ def mae_bound_ms(name, dtype, geo):
     """(bytes ms, operations ms) of one call: inputs read once, outputs
     written once; each product at the card's rate for its operands' type
     (:func:`ops_ms`): products of bf16 operands on the tensor cores, float32
-    products (TF32 off), the depthwise taps and attention's p·v (p is
-    float32) on the CUDA cores."""
+    products (TF32 off) and the depthwise taps on the CUDA cores.
+    Attention's p·v in bf16 has float32 p, which the kernel carries as two
+    bf16 products (p split into hi + lo, ``attention.split_bf16``): it is
+    counted as those two tensor-core products, so the bound is the least
+    time of the work as the kernel does it."""
     bf = dtype == torch.bfloat16
     esz = 2 if bf else 4
     if name == "flash_attention":
         b, h, n, d = geo
         qk = pv = 2 * b * h * n * n * d
         return (4 * b * h * n * d * esz / HBM_BPS * 1e3,
-                ops_ms(bf16=qk, f32=pv) if bf else ops_ms(f32=qk + pv))
+                ops_ms(bf16=qk + 2 * pv) if bf else ops_ms(f32=qk + pv))
     b, hw, c = geo[:3]
     m = b * hw * hw
     if name == "fused_ln_mlp":
@@ -1385,60 +1433,122 @@ def mae_bound_ms(name, dtype, geo):
             ops_ms(bf16=mm, f32=taps) if bf else ops_ms(f32=mm + taps))
 
 
+def _graphed(fn, calls):
+    """``calls`` calls of ``fn`` captured in one CUDA graph after a warm-up
+    call → a function that replays them: the device's time without the
+    host's launch overhead, which a small call (attention in the validation
+    forward) would otherwise measure."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    return graph.replay
+
+
+def _time_interleaved(kernel, plain, library=None, kernel_iters=10,
+                      plain_iters=3, graph=False):
+    """Median ms a call of ``kernel`` and ``plain`` (and ``library``), timed
+    in turns plain, kernel, kernel, plain (then library, library) on one
+    card, each the best of its turns' medians.  ``graph``: each turn replays
+    a CUDA graph of its calls (:func:`_graphed`), so the time is the
+    device's alone."""
+    from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
+    fns = {"kernel": kernel, "plain": plain, "library": library}
+    order = ["plain", "kernel", "kernel", "plain"]
+    if library is not None:
+        order += ["library", "library"]
+    runs = {}
+    for which in order:
+        iters = kernel_iters if which == "kernel" else plain_iters
+        if graph:
+            t = timeit_closed(_graphed(fns[which], iters), iters=1, repeats=3)
+            t = {k: v / iters for k, v in t.items() if k != "all"}
+        else:
+            t = timeit_closed(fns[which], iters=iters, repeats=3)
+        runs.setdefault(which, []).append(t)
+    return {k: min(r["median"] for r in v) * 1e3 for k, v in runs.items()}
+
+
+def _sdpa_f32(args):
+    """``F.scaled_dot_product_attention`` on float32 copies of q, k, v: the
+    one PyTorch call that computes attention's function (a yardstick only;
+    the port never calls it)."""
+    import torch.nn.functional as F
+    qf, kf, vf = (t.float().contiguous() for t in args)
+    return lambda: F.scaled_dot_product_attention(qf, kf, vf)
+
+
 def time_mae(device, crops, masks, val_imgs, val_draws):
     """Each ConvMAE kernel against its plain version (and attention against
     ``F.scaled_dot_product_attention``) at the bs 128 bf16 extraction
-    shapes; encoder img/s at bs 128 bf16 on the kernel, plain and
-    flash + front paths; the validation forward at bs 16 float32; peak
-    memory and profiles.  → per kernel (ms, plain ms, bound ms, bytes ms,
-    operations ms, library ms) per forward."""
-    import torch.nn.functional as F
+    shapes, and attention at the validation forward's float32 shapes;
+    encoder img/s at bs 128 bf16 on the kernel, plain and flash + front
+    paths; the validation forward at bs 16 float32; peak memory and
+    profiles.  → per kernel (ms, plain ms, bound ms, bytes ms, operations
+    ms, library ms) per forward."""
     from multimodal_isic_tpu_torch.data.augment import mae_eval_batch
     from multimodal_isic_tpu_torch.train.mae import (make_encoder_step,
                                                      make_mae_eval_step)
     from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
     fns = _mae_fns()
     g = torch.Generator(device=device).manual_seed(SEED + 25)
+    bf, f32 = torch.bfloat16, torch.float32
     per_fw = {"fused_ln_mlp": [((LAT_BATCH, 56, 256), 2), ((LAT_BATCH, 28, 384), 2)],
               "flash_attention": [((LAT_BATCH, 12, 196, 64), 11)],
               "fused_front": [((LAT_BATCH, 56, 256, False), 2),
                               ((LAT_BATCH, 28, 384, False), 2)]}
+    # attention in the validation forward (bs 16 f32): 11 encoder calls at
+    # N 49 (mask 0.75), 8 decoder calls at N 196, D 32
+    val_fw = [((VAL_BATCH, 12, 49, 64), 11), ((VAL_BATCH, 16, 196, 32), 8)]
+    jobs = [(name, bf, geos, "an encoder forward at bs 128 bf16")
+            for name, geos in per_fw.items()]
+    jobs.append(("flash_attention", f32, val_fw,
+                 f"a validation forward at bs {VAL_BATCH} f32"))
     out = {}
-    for name, geos in per_fw.items():
+    for name, dtype, geos, path in jobs:
         kern, ref = fns[name]
         tot = [0.0] * 5 + [None]
+        dev = {}  # attention's device time a path (CUDA-graph replays)
         for geo, calls in geos:
-            args = _mae_inputs(name, geo, torch.bfloat16, device, g)
-            runs = {"kernel": [], "plain": [], "library": []}
-            order = ["plain", "kernel", "kernel", "plain"]
-            lib_fn = None
-            if name == "flash_attention":
-                qf, kf, vf = (t.float().contiguous() for t in args)
-                lib_fn = lambda: F.scaled_dot_product_attention(qf, kf, vf)
-                order += ["library", "library"]
-            for which in order:
-                fn = {"kernel": lambda: kern(*args),
-                      "plain": lambda: ref(*args), "library": lib_fn}[which]
-                iters = 10 if which == "kernel" else 3
-                runs[which].append(timeit_closed(fn, iters=iters, repeats=3))
-            med = {k: min(r["median"] for r in v) * 1e3
-                   for k, v in runs.items() if v}
-            b_bytes, b_ops = mae_bound_ms(name, torch.bfloat16, geo)
+            args = _mae_inputs(name, geo, dtype, device, g)
+            fns3 = (lambda: kern(*args), lambda: ref(*args),
+                    _sdpa_f32(args) if name == "flash_attention" else None)
+            med = _time_interleaved(*fns3)
+            how = ""
+            if name == "flash_attention":  # beside it, the device's time
+                gr = _time_interleaved(*fns3, graph=True)
+                how = (f"; device time (CUDA-graph replays): kernel "
+                       f"{gr['kernel']:.4f}, plain {gr['plain']:.4f}, SDPA "
+                       f"{gr['library']:.4f} ms")
+                for k, v in gr.items():
+                    dev[k] = dev.get(k, 0.0) + calls * v
+            b_bytes, b_ops = mae_bound_ms(name, dtype, geo)
             bound = max(b_bytes, b_ops)
             lib = (f", SDPA on f32 copies {med['library']:.4f} ms"
                    if "library" in med else "")
-            print(f"time {name} {geo} bf16: kernel {med['kernel']:.4f} ms, "
-                  f"plain {med['plain']:.4f} ms ({med['plain'] / med['kernel']:.2f}x)"
-                  f"{lib}; bound {bound:.4f} ms (bytes {b_bytes:.4f}, "
-                  f"operations {b_ops:.4f}): {bound / med['kernel']:.1%} of it;"
-                  f" {calls} calls a forward")
+            print(f"time {name} {geo} {str(dtype)[6:]}: kernel "
+                  f"{med['kernel']:.4f} ms, plain {med['plain']:.4f} ms "
+                  f"({med['plain'] / med['kernel']:.2f}x){lib}; bound "
+                  f"{bound:.4f} ms (bytes {b_bytes:.4f}, operations "
+                  f"{b_ops:.4f}): {bound / med['kernel']:.1%} of it; {calls} "
+                  f"calls {path} (eager calls, CUDA events){how}")
             for i, v in enumerate((med["kernel"], med["plain"], bound,
                                    b_bytes, b_ops)):
                 tot[i] += calls * v
             if "library" in med:
                 tot[5] = (tot[5] or 0.0) + calls * med["library"]
             del args
-        out[name] = tot
+        lib = f", SDPA {tot[5]:.4f} ms" if tot[5] is not None else ""
+        how = (f"; device time (CUDA-graph replays): kernel "
+               f"{dev['kernel']:.4f}, plain {dev['plain']:.4f}, SDPA "
+               f"{dev['library']:.4f} ms: {tot[2] / dev['kernel']:.1%} of "
+               f"the bound" if dev else "")
+        print(f"time {name} per {path} (eager calls): kernel {tot[0]:.4f} ms, "
+              f"plain {tot[1]:.4f} ms{lib}; bound {tot[2]:.4f} ms: "
+              f"{tot[2] / tot[0]:.1%} of it{how}")
+        out.setdefault(name, tot)  # the kernel line keeps the latent path
 
     # encoder img/s, bs 128 bf16, the three configurations
     models = mae_models(device, SEED + 22, with_decoder=False,
@@ -1745,8 +1855,9 @@ def b10_bound_ms(dtype, m, c):
     written once, both weights read and their gradients (float32) written
     once, the vectors; the operations the function needs, 10·M·C·F (the h
     recompute, g·w2ᵀ, aᵀg, yᵀdh, dh·w1ᵀ), at the rate of their operands'
-    type.  The kernel's two passes both recompute h and g·w2ᵀ, 14·M·C·F:
-    that overhead is its own and is not in the bound."""
+    type.  The kernels do those operations and no more; their workspace
+    traffic (y, round(a), round(dh), dy) is their own and not in the
+    bound."""
     esz = 2 if dtype == torch.bfloat16 else 4
     f = 4 * c
     nbytes = 3 * m * c * esz + 2 * c * f * esz + 2 * c * f * 4 + (6 * c + 2 * f) * 4
@@ -1767,31 +1878,34 @@ def time_mae_train(device, train_ds):
     from multimodal_isic_tpu_torch.train import mae as M
     from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
     g = torch.Generator(device=device).manual_seed(SEED + 40)
-    tot = [0.0] * 5
+    step = {}  # dtype -> [kernel, plain, bound, bytes, operations] ms a step
     for dtype, m, c in b10_geometries()[:4]:
         args = _b10_inputs(dtype, m, c, device, g)
-        runs = {"kernel": [], "plain": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = (FM.fused_ln_mlp_backward if which == "kernel"
-                  else FM.fused_ln_mlp_backward_reference)
-            runs[which].append(timeit_closed(lambda: fn(*args),
-                                             iters=5 if which == "kernel" else 2,
-                                             repeats=3))
-        med = {k: min(r["median"] for r in v) * 1e3 for k, v in runs.items()}
+        med = _time_interleaved(lambda: FM.fused_ln_mlp_backward(*args),
+                                lambda: FM.fused_ln_mlp_backward_reference(*args),
+                                kernel_iters=5, plain_iters=2)
         b_bytes, b_ops = b10_bound_ms(dtype, m, c)
         bound = max(b_bytes, b_ops)
+        ws = FM.ln_mlp_bwd_workspace(m, c, 4 * c, dtype)[1]
         print(f"time fused_ln_mlp_backward M {m} C {c} {str(dtype)[6:]}: "
               f"kernel {med['kernel']:.4f} ms, plain {med['plain']:.4f} ms "
               f"({med['plain'] / med['kernel']:.2f}x); bound {bound:.4f} ms "
               f"(bytes {b_bytes:.4f}, operations {b_ops:.4f}): "
-              f"{bound / med['kernel']:.1%} of it (the kernel's own two-pass "
-              f"recompute does 1.4x the bound's operations); library: none "
-              f"(no one PyTorch call computes this function); 2 calls a step")
-        if dtype == torch.float32:  # the slice's step: bs 16 float32
-            for i, v in enumerate((med["kernel"], med["plain"], bound,
-                                   b_bytes, b_ops)):
-                tot[i] += 2 * v
+              f"{bound / med['kernel']:.1%} of it; workspace "
+              f"{ws / 2**20:.1f} MiB; library: none (no one PyTorch call "
+              f"computes this function); 2 calls a step")
+        kernel_breakdown(lambda: FM.fused_ln_mlp_backward(*args),
+                         f"fused_ln_mlp_backward M {m} C {c} "
+                         f"{str(dtype)[6:]}", r"ln_mlp_bwd_\w+")
+        for i, v in enumerate((med["kernel"], med["plain"], bound, b_bytes,
+                               b_ops)):
+            step.setdefault(dtype, [0.0] * 5)[i] += 2 * v
         del args
+    for dtype, (ker, pln, bnd, _, _) in step.items():
+        bsz = VAL_BATCH if dtype == torch.float32 else MAE_LARGE_BATCH
+        print(f"time fused_ln_mlp_backward per train step bs{bsz} "
+              f"{str(dtype)[6:]} (4 calls): kernel {ker:.4f} ms, plain "
+              f"{pln:.4f} ms; bound {bnd:.4f} ms: {bnd / ker:.1%} of it")
 
     pol_gen = generator(SEED + 41, device)
     for bsz, dtype in ((VAL_BATCH, torch.float32),
@@ -1827,7 +1941,7 @@ def time_mae_train(device, train_ds):
                           f"path", steps=2)
         del models, steps
         torch.cuda.empty_cache()
-    return tot + [None]
+    return step[torch.float32] + [None]  # the slice's step: bs 16 float32
 
 
 # -------------------------------------------- first order and the bare MLP

@@ -13,479 +13,580 @@
 //   dw2 = a^T . g     db2 = sum g     dw1 = y^T . dh     db1 = sum dh
 //   dy  = dh . w1^T   dls = sum dy * xhat   dlb = sum dy
 //   dx  = g + round_T(rsqrt(var + eps) * (dy*ls - mean(dy*ls) - xhat * mean(dy*ls*xhat)))
-// The [M, F] intermediates (h, a, dh) never reach device memory.
 //
-// What bounds it on the card.  The backward's products are ~10 M C F
-// operations (the h recompute, g.w2^T, a^T g, y^T dh, dh.w1^T) against
-// ~4 M C + 4 C F values moved: far above the ridge, so operations bound it.
-// At bs 16 float32 they run on the CUDA cores (TF32 stays off): stage 1
-// (M 50176, C 256, F 1024) and stage 2 (M 12544, C 384, F 1536).
+// What bounds it on the card.  The function's products are 10 M C F
+// operations (h, g.w2^T, a^T g, y^T dh, dh.w1^T) against ~4 M C + 4 C F
+// values moved: far above the ridge, so operations bound it.  At bs 16
+// float32 they run on the CUDA cores (TF32 stays off): stage 1 (M 50176,
+// C 256, F 1024) and stage 2 (M 12544, C 384, F 1536); bf16 on the tensor
+// cores.
 //
-// Design.  The TPU kernel runs its grid in order and keeps dw1/dw2 resident
-// across row blocks.  Here row blocks run in parallel, and one float32
-// atomicAdd per weight element and row block would cost ~8e8 atomics at stage
-// 1, so the work is split in two passes plus a fixed-order reduction, which
-// makes the sums the same from run to run:
-//  (A) rows: a persistent block walks row blocks blockIdx.x, +gridDim.x, ...
-//      For each block of BM rows it normalises the rows into shared memory
-//      (y; g beside it), walks F in chunks of FC = 32 (w1 and w2 rows of the
-//      chunk staged with cp.async), recomputes h and g.w2^T for the chunk,
-//      forms dh in shared memory and accumulates dy [BM, C] += dh . w1_chunk
-//      in registers across F.  The epilogue (a warp per row) finishes the
-//      LayerNorm backward and dx, and adds the rows' dy*xhat, dy and g into
-//      per-column partials that stay in registers; at the end the block
-//      writes one [3, C] partial.
-//  (B) weights: block (F chunk, row split) stages its w1/w2 rows once, then
-//      walks its rows BM at a time: LayerNorm, h and g.w2^T for the chunk,
-//      a^T and dh^T into shared memory, and dw1^T[chunk, :] += dh^T . y,
-//      dw2[chunk, :] += a^T . g, db1 += sum dh in registers; it writes one
-//      partial per split.
-//  (R) one thread per output element sums the partials in index order.
-// Both passes compute h and g.w2^T: ~14 M C F operations in all.
-// bf16 products run on mma.sync m16n8k16 with f32 accumulators (the operands
-// whose contraction runs down the rows of a row-major tile come through
-// ldmatrix .trans); float32 runs register-tiled FMA loops.  Shared rows are
-// padded so fragment loads are bank-conflict free.
+// The first design (two passes that both recomputed h and g.w2^T, 14 M C F
+// operations, FMA loops reading a shared word for every 2-4 FMAs, one 138-208
+// KB block an SM, weight chunks waited for without double buffering) ran at
+// 20% of the bound in float32, slower than its plain version.  This design
+// does the function's 10 M C F and nothing more: the [M, F] intermediates
+// round_T(a) and round_T(dh) go to a workspace once (2 M F values, written
+// once, read twice).  Measured on an H100 at stage 1 bs 16 f32, the act
+// GEMMs that a recompute would repeat take ~1.4 ms a call, the workspace
+// traffic they save ~0.4 ms, so the workspace wins; every product is then a
+// GEMM of one shape:
+//  (L) ln rows: a warp a row; mean and rsqrt(var + eps) to `stats`, y to the
+//      workspace.
+//  (H) act tiles [128 rows x 128 F]: h = y . w1 and p = g . w2^T side by
+//      side (two accumulators, K = C), epilogue a = round_T(gelu(h + b1))
+//      and dh = round_T(p * gelu'(h)) to the workspace (bf16: through shared
+//      memory, so the stores are 16-byte row pieces).
+//  (D) dy tiles [128 x 128]: dy = dh . w1^T (K = F), float32 to the
+//      workspace.
+//  (N) LayerNorm backward rows (a warp a row, a persistent grid): dx and the
+//      per-block column partials of dy * xhat, dy and g.
+//  (W) weight tiles [128 F x 128 C] over one of nsplit row ranges (split K):
+//      dw1^T = dh^T . y or dw2 = a^T . g, and db1 = sum dh in the dw1^T
+//      blocks of the first C tile; one partial per split.
+//  (R) one thread per output element sums the partials in index order, so
+//      the sums are the same bits on every run (no float atomics).
+// Each GEMM streams its operand tiles through a 3-stage ring of 16-byte
+// cp.async copies (one __syncthreads a k-tile, the next tiles in flight
+// while one is used), the operands in shared memory as they are stored.
+// float32: 256 threads, each an 8 x 8 register micro-tile (of each product
+// in H) over k-steps of 4, fed by float4 shared reads -- of 4 rows a k where
+// the contraction runs down the rows, of 4 k a row where it runs along them
+// -- 256 FMAs for 16 float4 reads a k-step.  bf16: 8 warps of mma.sync
+// m16n8k16 with 64 x 32 warp tiles, fragments through ldmatrix (.trans where
+// the contraction runs down the rows).  Rows are padded so the reads are
+// bank-conflict free; M and F may be ragged (zero-filled loads, masked
+// stores).
 
 #include "convmae_common.cuh"
 
 namespace {
 
 using namespace convmae;
+using bf16 = __nv_bfloat16;
 
-constexpr int FC = 32;         // F chunk (pass A) and a weight block's F width (pass B)
-constexpr int GRID_A = 264;    // pass A blocks at most (2 per SM of an H100)
-constexpr int TARGET_B = 264;  // pass B blocks at most: F/FC chunks x row splits
+constexpr int STAGES = 3;       // GEMM ring depth
+constexpr int SPLIT_ROWS = 32;  // the weight GEMMs' row splits are multiples of it
+constexpr int ACT_BN = 128;     // F columns of an act tile
+constexpr int DY_BN = 128;      // C columns of a dy tile
 
-template <typename T> struct Tile;
-template <> struct Tile<__nv_bfloat16> { static constexpr int BM = 64, PAD = 8; };
-template <> struct Tile<float> { static constexpr int BM = 32, PAD = 4; };
+template <typename T> struct Cfg;
+template <> struct Cfg<float> { static constexpr int BK = 16, PAD = 4; };
+template <> struct Cfg<bf16> { static constexpr int BK = 32, PAD = 8; };
 
-template <typename T, int C> struct Smem {
-  static constexpr int BM = Tile<T>::BM, PAD = Tile<T>::PAD;
-  static constexpr int LDC = C + PAD;   // rows of C values: y, g, w1 and w2 chunks
-  static constexpr int LDH = FC + PAD;  // pass A: dh [BM][FC]
-  static constexpr int LDM = BM + PAD;  // pass B: a^T, dh^T [FC][BM]
-  static constexpr size_t ROWS = align16(size_t(BM) * LDC * sizeof(T));
-  static constexpr size_t W = align16(size_t(FC) * LDC * sizeof(T));
-  static constexpr size_t DH = align16(size_t(BM) * LDH * sizeof(T));
-  static constexpr size_t STATS = align16(size_t(2) * BM * sizeof(float));
-  static constexpr size_t TR = align16(size_t(FC) * LDM * sizeof(T));
-  static constexpr size_t A_TOTAL = 2 * ROWS + 2 * W + DH + STATS;
-  static constexpr size_t B_TOTAL = 2 * ROWS + 2 * W + 2 * TR;
-  static_assert(2 * ROWS >= size_t(BM) * C * sizeof(float), "dy scratch fits over y, g");
-  static_assert(2 * W >= size_t(NWARPS) * 3 * C * sizeof(float),
-                "column partials fit over the weight chunks");
-};
-
-__device__ __forceinline__ float gelu_grad(float h) {
-  const float cdf = 0.5f * (1.0f + erff(h * 0.70710678118654752f));
-  return cdf + h * (expf(-0.5f * h * h) * 0.3989422804014327f);
+// a = gelu(h) (convmae::gelu's expression) and d = gelu'(h) = Phi(h) + h phi(h)
+// in float32, from one erff.
+__device__ __forceinline__ void gelu_and_grad(float h, float& a, float& d) {
+  const float e = erff(h * 0.70710678118654752f);
+  a = 0.5f * h * (1.0f + e);
+  d = 0.5f * (1.0f + e) + h * (expf(-0.5f * h * h) * 0.3989422804014327f);
 }
 
-__device__ __forceinline__ float comp(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+// ---------------------------------------------------------------- copies
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four 8x8 bf16 tiles, transposed: thread t gives the address of row t & 7 of
-// tile t >> 3 and receives, of each tile, rows 2(t % 4), 2(t % 4) + 1 of column
-// t / 4 -- an mma.sync B fragment of a [k][n] row-major tile.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+// rows x cols of T from global (row stride ld, element (r, c) valid while
+// r < rlim and c < clim; clim a multiple of 16 bytes) into shared (row
+// stride sld), 16-byte copies, the rest zero-filled.
+template <typename T, int ROWS, int COLS>
+__device__ __forceinline__ void load_rows(T* dst, int sld, const T* __restrict__ src, size_t ld,
+                                          int rlim, int clim) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int PER = COLS / VEC;
+  static_assert((ROWS * PER) % NTHREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * PER / NTHREADS; ++it) {
+    const int i = threadIdx.x + it * NTHREADS;
+    const int r = i / PER, c = (i - r * PER) * VEC;
+    const bool valid = r < rlim && c < clim;
+    cp16(dst + r * sld + c, valid ? src + size_t(r) * ld + c : src, valid);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
 }
 
-// The rows r0 .. r0 + BM - 1: y = round_T(xhat * ls + lb) into ys and g into
-// gs (rows past M are zeros in both, so they add nothing); the rows' mean and
-// rsqrt(var + eps) into st when it is given.  A warp per row.
-template <typename T, int C>
-__device__ __forceinline__ void load_rows(const T* __restrict__ x, const T* __restrict__ g,
-                                          const float* __restrict__ ls,
-                                          const float* __restrict__ lb, float eps, int r0,
-                                          int M, T* ys, T* gs, float* st, int lane, int warp) {
-  using S = Smem<T, C>;
-  constexpr int VPL = C / 32;
-  constexpr int NV = C * sizeof(T) / 16;  // 16-byte vectors in a row
-  for (int r = warp; r < S::BM; r += NWARPS) {
-    const int row = r0 + r;
-    T* yd = ys + r * S::LDC;
-    uint4* gd = reinterpret_cast<uint4*>(gs + r * S::LDC);
-    if (row < M) {
-      const T* xr = x + size_t(row) * C;
-      float v[VPL];
-      float s = 0.0f, ss = 0.0f;
+// ------------------------------------------------------------------ GEMM
+// One operand pair of a GEMM tile: C[x, n] += sum_k A(x, k) B(k, n).
+// A is stored [x][k] (AK false: row stride lda) or [k][x] (AK true); B is
+// always stored [k][n] (row stride ldb).  xlim, nlim, klim bound the valid
+// elements (counted from the tile's corner).
+template <typename T>
+struct Operand {
+  const T* a;
+  size_t lda;
+  const T* b;
+  size_t ldb;
+};
+
+// A block tile BM x BN of NOPS products over K, 256 threads, a STAGES-deep
+// cp.async ring.  float32: acc[NOPS][TM][TN] per thread, rows ty*4 + i (+ BM/2
+// for i >= 4), columns tx*4 + j (+ BN/2 for j >= 4), ty = tid / 16, tx =
+// tid % 16.  bf16: warps 2 (x) x 4 (n), acc[NOPS][MT][NT][4] in the mma.sync
+// accumulator layout.
+template <typename T, int BM, int BN, int NOPS, bool AK>
+struct Gemm {
+  static constexpr bool F32 = std::is_same_v<T, float>;
+  static constexpr int BK = Cfg<T>::BK, PAD = Cfg<T>::PAD;
+  // shared memory keeps A as it is stored: [k][x] (AK) or [x][k]
+  static constexpr int A_LD = AK ? BM + PAD : BK + PAD;
+  static constexpr int A_ELEMS = (AK ? BK : BM) * A_LD;
+  static constexpr int B_LD = BN + PAD;
+  static constexpr int B_ELEMS = BK * B_LD;
+  static constexpr int STAGE = NOPS * (A_ELEMS + B_ELEMS);
+  static constexpr size_t SMEM = size_t(STAGES) * STAGE * sizeof(T);
+  // float32 micro-tile
+  static constexpr int TM = BM / 16, TN = BN / 16;
+  // bf16 warp tile
+  static constexpr int WM = BM / 2, WN = BN / 4;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static_assert(F32 ? (TM == 8 && (TN == 8 || TN == 4)) : (MT >= 1 && NT % 2 == 0), "tile");
+  static constexpr int A1 = F32 ? TM : MT, A2 = F32 ? TN : NT, A3 = F32 ? 1 : 4;
+  float acc[NOPS][A1][A2][A3];
+
+  __device__ __forceinline__ T* a_tile(T* smem, int stage, int op) const {
+    return smem + stage * STAGE + op * (A_ELEMS + B_ELEMS);
+  }
+  __device__ __forceinline__ T* b_tile(T* smem, int stage, int op) const {
+    return a_tile(smem, stage, op) + A_ELEMS;
+  }
+
+  __device__ __forceinline__ void load(T* smem, int stage, const Operand<T> (&ops)[NOPS], int k0,
+                                       int xlim, int nlim, int klim) const {
 #pragma unroll
-      for (int i = 0; i < VPL; ++i) {
-        v[i] = to_f(xr[lane + 32 * i]);
-        s += v[i];
-        ss += v[i] * v[i];
+    for (int o = 0; o < NOPS; ++o) {
+      T* as = a_tile(smem, stage, o);
+      if constexpr (AK) {
+        load_rows<T, BK, BM>(as, A_LD, ops[o].a + size_t(k0) * ops[o].lda, ops[o].lda,
+                             klim - k0, xlim);
+      } else {
+        load_rows<T, BM, BK>(as, A_LD, ops[o].a + k0, ops[o].lda, xlim, klim - k0);
       }
-      s = warp_sum(s);
-      ss = warp_sum(ss);
-      const float mean = s / float(C);
-      const float rs = rsqrtf(fmaxf(ss / float(C) - mean * mean, 0.0f) + eps);
+      load_rows<T, BK, BN>(b_tile(smem, stage, o), B_LD, ops[o].b + size_t(k0) * ops[o].ldb,
+                           ops[o].ldb, klim - k0, nlim);
+    }
+  }
+
+  __device__ __forceinline__ void compute(T* smem, int stage) {
+    if constexpr (F32) {
+      const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
-      for (int i = 0; i < VPL; ++i) {
-        const int c = lane + 32 * i;
-        yd[c] = from_f<T>((v[i] - mean) * rs * ls[c] + lb[c]);
-      }
-      const uint4* gr = reinterpret_cast<const uint4*>(g + size_t(row) * C);
-      for (int i = lane; i < NV; i += 32) gd[i] = gr[i];
-      if (st != nullptr && lane == 0) {
-        st[2 * r] = mean;
-        st[2 * r + 1] = rs;
+      for (int o = 0; o < NOPS; ++o) {
+        const float* as = a_tile(smem, stage, o);
+        const float* bs = b_tile(smem, stage, o);
+#pragma unroll
+        for (int k = 0; k < BK; k += 4) {
+          // A: [k][x], a float4 of 4 rows a k; [x][k], a float4 of 4 k a row
+          float4 a4[TM];
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const int x = (i < 4 ? 0 : BM / 2) + ty * 4 + (i & 3);
+            if constexpr (AK) {
+              if ((i & 3) == 0) {
+                const float4 c0 = *reinterpret_cast<const float4*>(as + k * A_LD + x);
+                const float4 c1 = *reinterpret_cast<const float4*>(as + (k + 1) * A_LD + x);
+                const float4 c2 = *reinterpret_cast<const float4*>(as + (k + 2) * A_LD + x);
+                const float4 c3 = *reinterpret_cast<const float4*>(as + (k + 3) * A_LD + x);
+                a4[i] = make_float4(c0.x, c1.x, c2.x, c3.x);
+                a4[i + 1] = make_float4(c0.y, c1.y, c2.y, c3.y);
+                a4[i + 2] = make_float4(c0.z, c1.z, c2.z, c3.z);
+                a4[i + 3] = make_float4(c0.w, c1.w, c2.w, c3.w);
+              }
+            } else {
+              a4[i] = *reinterpret_cast<const float4*>(as + x * A_LD + k);
+            }
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 b0 = *reinterpret_cast<const float4*>(bs + (k + kk) * B_LD + tx * 4);
+            float bv[TN];
+            bv[0] = b0.x, bv[1] = b0.y, bv[2] = b0.z, bv[3] = b0.w;
+            if constexpr (TN == 8) {
+              const float4 b1 =
+                  *reinterpret_cast<const float4*>(bs + (k + kk) * B_LD + BN / 2 + tx * 4);
+              bv[4] = b1.x, bv[5] = b1.y, bv[6] = b1.z, bv[7] = b1.w;
+            }
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+              const float av = kk == 0 ? a4[i].x : kk == 1 ? a4[i].y : kk == 2 ? a4[i].z : a4[i].w;
+#pragma unroll
+              for (int j = 0; j < TN; ++j) acc[o][i][j][0] = fmaf(av, bv[j], acc[o][i][j][0]);
+            }
+          }
+        }
       }
     } else {
-      for (int c = lane; c < C; c += 32) yd[c] = from_f<T>(0.0f);
-      for (int i = lane; i < NV; i += 32) gd[i] = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
-
-// For the F chunk staged in w1s/w2s (FC rows of w1^T and w2): h = round_T(y .
-// w1^T + b1) and p = g . w2^T over the block's BM rows; emit(row, col, a, dh)
-// with a = round_T(gelu(h)) and dh = round_T(p * gelu'(h)).
-template <typename T, int C, typename Emit>
-__device__ __forceinline__ void recompute_chunk(const T* ys, const T* gs, const T* w1s,
-                                                const T* w2s, const float* __restrict__ b1c,
-                                                int lane, int warp, Emit emit) {
-  using S = Smem<T, C>;
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    const int mt = warp & 3, nh = warp >> 2, gid = lane >> 2, tig = lane & 3;
-    float h[2][4] = {}, p[2][4] = {};
-    warp_mma<2, C, false>(h, ys + mt * 16 * S::LDC, S::LDC, w1s + nh * 16 * S::LDC, S::LDC,
-                          lane);
-    warp_mma<2, C, false>(p, gs + mt * 16 * S::LDC, S::LDC, w2s + nh * 16 * S::LDC, S::LDC,
-                          lane);
+      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+      const int wx = (warp & 1) * WM, wn = (warp >> 1) * WN;
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+      for (int o = 0; o < NOPS; ++o) {
+        const bf16* as = a_tile(smem, stage, o);
+        const bf16* bs = b_tile(smem, stage, o);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = mt * 16 + gid + (e >> 1) * 8;
-        const int col = nh * 16 + nt * 8 + tig * 2 + (e & 1);
-        const float hv = round_to<T>(h[nt][e] + b1c[col]);
-        emit(row, col, from_f<T>(gelu(hv)), from_f<T>(p[nt][e] * gelu_grad(hv)));
-      }
-  } else {
-    constexpr int RI = S::BM / NWARPS;
-    float h[RI] = {}, p[RI] = {};
-    const float* w1r = reinterpret_cast<const float*>(w1s) + lane * S::LDC;
-    const float* w2r = reinterpret_cast<const float*>(w2s) + lane * S::LDC;
-    const float* yf = reinterpret_cast<const float*>(ys);
-    const float* gf = reinterpret_cast<const float*>(gs);
-    for (int k = 0; k < C; k += 4) {
-      const float4 wa = *reinterpret_cast<const float4*>(w1r + k);
-      const float4 wb = *reinterpret_cast<const float4*>(w2r + k);
+        for (int k0 = 0; k0 < BK; k0 += 16) {
+          uint32_t af[MT][4];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int o = (warp + NWARPS * i) * S::LDC + k;
-        const float4 y = *reinterpret_cast<const float4*>(yf + o);
-        const float4 gg = *reinterpret_cast<const float4*>(gf + o);
-        h[i] = fmaf(y.x, wa.x, fmaf(y.y, wa.y, fmaf(y.z, wa.z, fmaf(y.w, wa.w, h[i]))));
-        p[i] = fmaf(gg.x, wb.x, fmaf(gg.y, wb.y, fmaf(gg.z, wb.z, fmaf(gg.w, wb.w, p[i]))));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const float hv = h[i] + b1c[lane];
-      emit(warp + NWARPS * i, lane, gelu(hv), p[i] * gelu_grad(hv));
-    }
-  }
-}
-
-// ---------------------------------------------------------------- pass A
-template <typename T, int C>
-__global__ void __launch_bounds__(NTHREADS)
-ln_mlp_bwd_rows(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ ls,
-                const float* __restrict__ lb, const T* __restrict__ w1,  // [F, C]
-                const float* __restrict__ b1, const T* __restrict__ w2,  // [F, C]
-                T* __restrict__ dx, float* __restrict__ part,            // [gridDim.x][3][C]
-                int M, int F, float eps) {
-  using S = Smem<T, C>;
-  constexpr int BM = S::BM;
-  constexpr bool BF16 = std::is_same_v<T, __nv_bfloat16>;
-  constexpr int VPL = C / 32;
-  constexpr int NT = C / 16;        // bf16: n-tiles in a warp's half of C
-  constexpr int RI = BM / NWARPS;   // f32: rows per thread
-  constexpr int CJ = C / 32;        // f32: columns per thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ys = reinterpret_cast<T*>(smem);
-  T* gs = reinterpret_cast<T*>(smem + S::ROWS);
-  T* w1s = reinterpret_cast<T*>(smem + 2 * S::ROWS);
-  T* w2s = reinterpret_cast<T*>(smem + 2 * S::ROWS + S::W);
-  T* dhs = reinterpret_cast<T*>(smem + 2 * S::ROWS + 2 * S::W);
-  float* st = reinterpret_cast<float*>(smem + 2 * S::ROWS + 2 * S::W + S::DH);
-  float* dys = reinterpret_cast<float*>(smem);                // [BM][C] over ys, gs
-  float* colp = reinterpret_cast<float*>(smem + 2 * S::ROWS);  // [NWARPS][3][C] at the end
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int mt = warp & 3, nh = warp >> 2;  // bf16 warp tiles of dy
-  const int nrb = (M + BM - 1) / BM;
-
-  float pls[VPL], plb[VPL], pb2[VPL];  // this warp's column sums over its rows
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) pls[i] = plb[i] = pb2[i] = 0.0f;
-
-  for (int rb = blockIdx.x; rb < nrb; rb += gridDim.x) {
-    const int r0 = rb * BM;
-    __syncthreads();  // the previous row block's epilogue is done with dys and st
-    load_rows<T, C>(x, g, ls, lb, eps, r0, M, ys, gs, st, lane, warp);
-
-    float acc[BF16 ? NT : RI][BF16 ? 4 : CJ];
-#pragma unroll
-    for (int i = 0; i < (BF16 ? NT : RI); ++i)
-#pragma unroll
-      for (int j = 0; j < (BF16 ? 4 : CJ); ++j) acc[i][j] = 0.0f;
-
-    for (int f0 = 0; f0 < F; f0 += FC) {
-      __syncthreads();  // rows loaded; the previous chunk's reads are done
-      copy_tile_async(w1s, S::LDC, w1 + size_t(f0) * C, C, FC, C);
-      copy_tile_async(w2s, S::LDC, w2 + size_t(f0) * C, C, FC, C);
-      cp_async_wait_all();
-      __syncthreads();
-      recompute_chunk<T, C>(ys, gs, w1s, w2s, b1 + f0, lane, warp,
-                            [&](int row, int col, T, T dh) { dhs[row * S::LDH + col] = dh; });
-      __syncthreads();
-      // dy += dh . w1_chunk  (w1s[f][c] is the [k][n] tile)
-      if constexpr (BF16) {
-#pragma unroll
-        for (int k0 = 0; k0 < FC; k0 += 16) {
-          const __nv_bfloat16* pa = dhs + (mt * 16 + gid) * S::LDH + k0 + tig * 2;
-          const __nv_bfloat16* pb = pa + 8 * S::LDH;
-          const uint32_t af[4] = {ld32(pa), ld32(pb), ld32(pa + 8), ld32(pb + 8)};
-          const __nv_bfloat16* bt =
-              w1s + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * S::LDC + nh * (C / 2) +
-              (lane >> 4) * 8;
+          for (int mt = 0; mt < MT; ++mt) {
+            const int x0 = wx + mt * 16;
+            if constexpr (AK) {  // [k][x]: matrices (x 0-7 | 8-15) x (k 0-7 | 8-15)
+              const int q = lane >> 3;
+              ldsm_x4_trans(af[mt], as + (k0 + (lane & 7) + (q >> 1) * 8) * A_LD + x0 +
+                                        (q & 1) * 8);
+            } else {  // [x][k]
+              ldsm_x4(af[mt], as + (x0 + (lane & 15)) * A_LD + k0 + (lane >> 4) * 8);
+            }
+          }
 #pragma unroll
           for (int np = 0; np < NT; np += 2) {
             uint32_t b[4];
-            ldsm_x4_trans(b, bt + np * 8);
-            mma_16816(acc[np], af, b[0], b[1]);
-            mma_16816(acc[np + 1], af, b[2], b[3]);
+            ldsm_x4_trans(b, bs + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * B_LD + wn +
+                                 np * 8 + (lane >> 4) * 8);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma_16816(acc[o][mt][np], af[mt], b[0], b[1]);
+              mma_16816(acc[o][mt][np + 1], af[mt], b[2], b[3]);
+            }
           }
         }
-      } else {
-        const float* dh = reinterpret_cast<const float*>(dhs);
-        const float* w = reinterpret_cast<const float*>(w1s);
-#pragma unroll 2
-        for (int f = 0; f < FC; f += 4) {
-          float4 d[RI];
-#pragma unroll
-          for (int i = 0; i < RI; ++i)
-            d[i] = *reinterpret_cast<const float4*>(dh + (warp + NWARPS * i) * S::LDH + f);
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-#pragma unroll
-            for (int j = 0; j < CJ; ++j) {
-              const float wv = w[(f + q) * S::LDC + lane + 32 * j];
-#pragma unroll
-              for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(comp(d[i], q), wv, acc[i][j]);
-            }
-        }
-      }
-    }
-    __syncthreads();  // every read of ys and gs is done: dy goes over them
-    if constexpr (BF16) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = mt * 16 + gid + hf * 8;
-          const int col = nh * (C / 2) + nt * 8 + tig * 2;
-          *reinterpret_cast<float2*>(dys + row * C + col) =
-              make_float2(acc[nt][hf * 2], acc[nt][hf * 2 + 1]);
-        }
-    } else {
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) dys[(warp + NWARPS * i) * C + lane + 32 * j] = acc[i][j];
-    }
-    __syncthreads();
-
-    // LayerNorm backward and dx, a warp per row; column partials
-    for (int r = warp; r < BM; r += NWARPS) {
-      const int row = r0 + r;
-      if (row >= M) break;
-      const float mean = st[2 * r], rs = st[2 * r + 1];
-      const T* xr = x + size_t(row) * C;
-      const T* gr = g + size_t(row) * C;
-      float xh[VPL], dxh[VPL], gv[VPL];
-      float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-      for (int i = 0; i < VPL; ++i) {
-        const int c = lane + 32 * i;
-        xh[i] = (to_f(xr[c]) - mean) * rs;
-        gv[i] = to_f(gr[c]);
-        const float dy = dys[r * C + c];
-        pls[i] += dy * xh[i];
-        plb[i] += dy;
-        pb2[i] += gv[i];
-        dxh[i] = dy * ls[c];
-        s1 += dxh[i];
-        s2 += dxh[i] * xh[i];
-      }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      const float m1 = s1 / float(C), m2 = s2 / float(C);
-#pragma unroll
-      for (int i = 0; i < VPL; ++i) {
-        const float dl = rs * (dxh[i] - m1 - xh[i] * m2);
-        dx[size_t(row) * C + lane + 32 * i] = from_f<T>(gv[i] + round_to<T>(dl));
       }
     }
   }
-  __syncthreads();  // the weight chunks are no longer read: partials go over them
+
+  // acc = sum over k in [0, klim) of the NOPS products of the tile; hook(stage)
+  // runs on each k-tile's shared stage after the products have read it.
+  template <typename Hook>
+  __device__ __forceinline__ void run(T* smem, const Operand<T> (&ops)[NOPS], int xlim, int nlim,
+                                      int klim, Hook hook) {
+#pragma unroll
+    for (int o = 0; o < NOPS; ++o)
+#pragma unroll
+      for (int i = 0; i < A1; ++i)
+#pragma unroll
+        for (int j = 0; j < A2; ++j)
+#pragma unroll
+          for (int e = 0; e < A3; ++e) acc[o][i][j][e] = 0.0f;
+    const int kt = (klim + BK - 1) / BK;
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < kt) load(smem, s, ops, s * BK, xlim, nlim, klim);
+      cp_commit();
+    }
+    for (int t = 0; t < kt; ++t) {
+      cp_wait<STAGES - 2>();
+      __syncthreads();  // tile t landed; every thread is done with tile t - 1
+      const int nxt = t + STAGES - 1;
+      if (nxt < kt) load(smem, nxt % STAGES, ops, nxt * BK, xlim, nlim, klim);
+      cp_commit();
+      compute(smem, t % STAGES);
+      hook(t % STAGES);
+    }
+    cp_wait<0>();
+  }
+
+  // fn(op values[NOPS] for NV consecutive columns, x, n, NV) over the
+  // thread's accumulator: NV = 4 (float32) or 2 (bf16) columns at a time.
+  template <typename Fn>
+  __device__ __forceinline__ void epilogue(Fn fn) const {
+    if constexpr (F32) {
+      const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j0 = 0; j0 < TN; j0 += 4) {
+          const int x = (i < 4 ? 0 : BM / 2) + ty * 4 + (i & 3);
+          const int n = (j0 < 4 ? 0 : BN / 2) + tx * 4;
+          float v[NOPS][4];
+#pragma unroll
+          for (int o = 0; o < NOPS; ++o)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) v[o][j] = acc[o][i][j0 + j][0];
+          fn(v, x, n);
+        }
+    } else {
+      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+      const int gid = lane >> 2, tig = lane & 3;
+      const int wx = (warp & 1) * WM, wn = (warp >> 1) * WN;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float v[NOPS][2];
+#pragma unroll
+            for (int o = 0; o < NOPS; ++o) {
+              v[o][0] = acc[o][mt][nt][hf * 2];
+              v[o][1] = acc[o][mt][nt][hf * 2 + 1];
+            }
+            fn(v, wx + mt * 16 + gid + hf * 8, wn + nt * 8 + tig * 2);
+          }
+    }
+  }
+};
+
+template <typename T, int NV> struct Vec;
+template <> struct Vec<float, 4> {
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <> struct Vec<float, 2> {
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+};
+template <> struct Vec<bf16, 2> {
+  static __device__ __forceinline__ void store(bf16* p, const float* v) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  }
+};
+
+// ----------------------------------------------------------- (L) ln rows
+template <typename T, int C>
+__global__ void __launch_bounds__(NTHREADS)
+ln_mlp_bwd_ln(const T* __restrict__ x, const float* __restrict__ ls, const float* __restrict__ lb,
+              T* __restrict__ y, float* __restrict__ stats, int M, float eps) {
+  constexpr int VPL = C / 32;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * NWARPS + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const T* xr = x + size_t(row) * C;
+  float v[VPL];
+  float s = 0.0f, ss = 0.0f;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    v[i] = to_f(xr[lane + 32 * i]);
+    s += v[i];
+    ss += v[i] * v[i];
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mean = s / float(C);
+  const float rs = rsqrtf(fmaxf(ss / float(C) - mean * mean, 0.0f) + eps);
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     const int c = lane + 32 * i;
-    colp[(warp * 3 + 0) * C + c] = pls[i];
-    colp[(warp * 3 + 1) * C + c] = plb[i];
-    colp[(warp * 3 + 2) * C + c] = pb2[i];
+    y[size_t(row) * C + c] = from_f<T>((v[i] - mean) * rs * ls[c] + lb[c]);
+  }
+  if (lane == 0) {
+    stats[2 * row] = mean;
+    stats[2 * row + 1] = rs;
+  }
+}
+
+// ------------------------------------------------------- (H) act tiles
+template <typename T>
+using ActGemm = Gemm<T, 128, ACT_BN, 2, false>;
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS, 1)
+ln_mlp_bwd_act(const T* __restrict__ y, const T* __restrict__ g, const T* __restrict__ w1,
+               const T* __restrict__ w2t, const float* __restrict__ b1, T* __restrict__ wa,
+               T* __restrict__ wdh, int M, int C, int F) {
+  using G = ActGemm<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int m0 = blockIdx.x * 128, f0 = blockIdx.y * ACT_BN;
+  const Operand<T> ops[2] = {{y + size_t(m0) * C, size_t(C), w1 + f0, size_t(F)},
+                             {g + size_t(m0) * C, size_t(C), w2t + f0, size_t(F)}};
+  G gm;
+  gm.run(smem, ops, M - m0, F - f0, C, [](int) {});
+  // a = round_T(gelu(h)), dh = round_T(p * gelu'(h)) at (row xr, column n)
+  const auto act = [&](const float (&v)[2][4], int n, int nv, float* a, float* dh) {
+#pragma unroll
+    for (int j = 0; j < nv; ++j) {
+      const float hv = round_to<T>(v[0][j] + b1[f0 + n + j]);
+      gelu_and_grad(hv, a[j], dh[j]);
+      dh[j] *= v[1][j];
+    }
+  };
+  if constexpr (std::is_same_v<T, float>) {
+    gm.epilogue([&](const auto& v, int xr, int n) {
+      const int m = m0 + xr, f = f0 + n;
+      if (m >= M || f >= F) return;
+      float a[4], dh[4];
+      act(v, n, 4, a, dh);
+      Vec<float, 4>::store(wa + size_t(m) * F + f, a);
+      Vec<float, 4>::store(wdh + size_t(m) * F + f, dh);
+    });
+  } else {
+    // bf16: the accumulator layout gives 4-byte pieces of 8 rows a warp
+    // store, so the tile goes through shared memory (over the ring) and out
+    // as 16-byte row pieces
+    constexpr int LDT = ACT_BN + 8;
+    static_assert(2 * 128 * LDT <= STAGES * G::STAGE, "the tile fits the ring");
+    bf16* sa = smem;
+    bf16* sd = smem + 128 * LDT;
+    __syncthreads();  // every warp is done with the ring
+    gm.epilogue([&](const auto& v, int xr, int n) {
+      if (f0 + n >= F) return;
+      float w[2][4] = {{v[0][0], v[0][1]}, {v[1][0], v[1][1]}};
+      float a[2], dh[2];
+      act(w, n, 2, a, dh);
+      Vec<bf16, 2>::store(sa + xr * LDT + n, a);
+      Vec<bf16, 2>::store(sd + xr * LDT + n, dh);
+    });
+    __syncthreads();
+    constexpr int PER = ACT_BN / 8;  // 16-byte pieces a row
+    for (int i = threadIdx.x; i < 128 * PER; i += NTHREADS) {
+      const int r = i / PER, c = (i - r * PER) * 8;
+      const size_t o = size_t(m0 + r) * F + f0 + c;
+      if (m0 + r < M && f0 + c < F) {
+        *reinterpret_cast<uint4*>(wa + o) = *reinterpret_cast<const uint4*>(sa + r * LDT + c);
+        *reinterpret_cast<uint4*>(wdh + o) = *reinterpret_cast<const uint4*>(sd + r * LDT + c);
+      }
+    }
+  }
+}
+
+// -------------------------------------------------------- (D) dy tiles
+template <typename T>
+using DyGemm = Gemm<T, 128, DY_BN, 1, false>;
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS, 2)
+ln_mlp_bwd_dy(const T* __restrict__ wdh, const T* __restrict__ w1k, float* __restrict__ dy,
+              int M, int C, int F) {
+  using G = DyGemm<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int m0 = blockIdx.x * 128, c0 = blockIdx.y * DY_BN;
+  const Operand<T> ops[1] = {{wdh + size_t(m0) * F, size_t(F), w1k + c0, size_t(C)}};
+  G gm;
+  gm.run(smem, ops, M - m0, C - c0, F, [](int) {});
+  gm.epilogue([&](const auto& v, int xr, int n) {
+    constexpr int NV = std::extent_v<std::remove_reference_t<decltype(v)>, 1>;
+    const int m = m0 + xr;
+    if (m < M) Vec<float, NV>::store(dy + size_t(m) * C + c0 + n, v[0]);
+  });
+}
+
+// ---------------------------------------------- (N) LayerNorm backward rows
+template <typename T, int C>
+__global__ void __launch_bounds__(NTHREADS)
+ln_mlp_bwd_norm(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ ls,
+                const float* __restrict__ dy, const float* __restrict__ stats,
+                T* __restrict__ dx, float* __restrict__ part, int M) {
+  constexpr int VPL = C / 32;
+  __shared__ float colp[NWARPS][3][C];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float pls[VPL], plb[VPL], pb2[VPL];  // this warp's column sums over its rows
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) pls[i] = plb[i] = pb2[i] = 0.0f;
+  for (int row = blockIdx.x * NWARPS + warp; row < M; row += gridDim.x * NWARPS) {
+    const float mean = stats[2 * row], rs = stats[2 * row + 1];
+    const T* xr = x + size_t(row) * C;
+    const T* gr = g + size_t(row) * C;
+    const float* dr = dy + size_t(row) * C;
+    float xh[VPL], dxh[VPL], gv[VPL];
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int c = lane + 32 * i;
+      xh[i] = (to_f(xr[c]) - mean) * rs;
+      gv[i] = to_f(gr[c]);
+      const float d = dr[c];
+      pls[i] += d * xh[i];
+      plb[i] += d;
+      pb2[i] += gv[i];
+      dxh[i] = d * ls[c];
+      s1 += dxh[i];
+      s2 += dxh[i] * xh[i];
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    const float m1 = s1 / float(C), m2 = s2 / float(C);
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const float dl = rs * (dxh[i] - m1 - xh[i] * m2);
+      dx[size_t(row) * C + lane + 32 * i] = from_f<T>(gv[i] + round_to<T>(dl));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int c = lane + 32 * i;
+    colp[warp][0][c] = pls[i];
+    colp[warp][1][c] = plb[i];
+    colp[warp][2][c] = pb2[i];
   }
   __syncthreads();
   for (int e = threadIdx.x; e < 3 * C; e += NTHREADS) {
     float s = 0.0f;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) s += colp[w * 3 * C + e];
+    for (int w = 0; w < NWARPS; ++w) s += (&colp[w][0][0])[e];
     part[size_t(blockIdx.x) * 3 * C + e] = s;
   }
 }
 
-// ---------------------------------------------------------------- pass B
-template <typename T, int C>
-__global__ void __launch_bounds__(NTHREADS)
-ln_mlp_bwd_weights(const T* __restrict__ x, const T* __restrict__ g,
-                   const float* __restrict__ ls, const float* __restrict__ lb,
-                   const T* __restrict__ w1,  // [F, C]
-                   const float* __restrict__ b1, const T* __restrict__ w2,  // [F, C]
-                   float* __restrict__ part,  // [gridDim.y][2 F C + F]
-                   int M, int F, int rows_per, float eps) {
-  using S = Smem<T, C>;
-  constexpr int BM = S::BM;
-  constexpr bool BF16 = std::is_same_v<T, __nv_bfloat16>;
-  constexpr int NQ = C / 32;  // bf16: n-tiles in a warp's quarter of C; f32: columns a thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ys = reinterpret_cast<T*>(smem);
-  T* gs = reinterpret_cast<T*>(smem + S::ROWS);
-  T* w1s = reinterpret_cast<T*>(smem + 2 * S::ROWS);
-  T* w2s = reinterpret_cast<T*>(smem + 2 * S::ROWS + S::W);
-  T* at = reinterpret_cast<T*>(smem + 2 * S::ROWS + 2 * S::W);
-  T* dht = reinterpret_cast<T*>(smem + 2 * S::ROWS + 2 * S::W + S::TR);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int f0 = blockIdx.x * FC;
-  const int rbeg = blockIdx.y * rows_per;
-  const int rend = min(M, rbeg + rows_per);
+// --------------------------------------------------- (W) weight tiles
+template <typename T>
+using WGemm = Gemm<T, 128, 128, 1, true>;
 
-  copy_tile_async(w1s, S::LDC, w1 + size_t(f0) * C, C, FC, C);
-  copy_tile_async(w2s, S::LDC, w2 + size_t(f0) * C, C, FC, C);
-
-  float acc1[BF16 ? NQ : 4][BF16 ? 4 : NQ], acc2[BF16 ? NQ : 4][BF16 ? 4 : NQ];
+// grid (F tiles, C tiles, 2 x nsplit): z even dw1^T = dh^T . y, z odd
+// dw2 = a^T . g, over rows [split * rows_per, +rows_per); partials
+// [nsplit][dw1^T F C | dw2 F C | db1 F].
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS, 2)
+ln_mlp_bwd_weights(const T* __restrict__ wdh, const T* __restrict__ wa, const T* __restrict__ y,
+                   const T* __restrict__ g, float* __restrict__ part, int M, int C, int F,
+                   int rows_per) {
+  using G = WGemm<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int f0 = blockIdx.x * 128, c0 = blockIdx.y * 128;
+  const int which = blockIdx.z & 1, split = blockIdx.z >> 1;
+  const int r0 = split * rows_per;
+  const int klim = min(rows_per, M - r0);
+  const T* A = (which ? wa : wdh) + size_t(r0) * F + f0;
+  const T* B = (which ? g : y) + size_t(r0) * C + c0;
+  const Operand<T> ops[1] = {{A, size_t(F), B, size_t(C)}};
+  const bool sum_db1 = which == 0 && blockIdx.y == 0;
+  float db1 = 0.0f;  // thread t < 128: column f0 + t of dh over the split's rows
+  G gm;
+  gm.run(smem, ops, F - f0, C - c0, klim, [&](int stage) {
+    if (sum_db1 && threadIdx.x < 128) {
+      const T* as = gm.a_tile(smem, stage, 0);  // [k][f], zero past the rows
 #pragma unroll
-  for (int i = 0; i < (BF16 ? NQ : 4); ++i)
-#pragma unroll
-    for (int j = 0; j < (BF16 ? 4 : NQ); ++j) acc1[i][j] = acc2[i][j] = 0.0f;
-  float db1 = 0.0f;
-  const int mt = warp & 1, cq = warp >> 1;  // bf16 warp tiles of the [FC][C] sums
-
-  for (int r0 = rbeg; r0 < rend; r0 += BM) {
-    __syncthreads();  // the previous rows' reads of ys, gs, at, dht are done
-    load_rows<T, C>(x, g, ls, lb, eps, r0, M, ys, gs, nullptr, lane, warp);
-    cp_async_wait_all();
-    __syncthreads();
-    recompute_chunk<T, C>(ys, gs, w1s, w2s, b1 + f0, lane, warp,
-                          [&](int row, int col, T a, T dh) {
-                            at[col * S::LDM + row] = a;
-                            dht[col * S::LDM + row] = dh;
-                          });
-    __syncthreads();
-    if (threadIdx.x < FC) {
-      const T* d = dht + threadIdx.x * S::LDM;
-      for (int m = 0; m < BM; ++m) db1 += to_f(d[m]);
+      for (int k = 0; k < G::BK; ++k) db1 += to_f(as[k * G::A_LD + threadIdx.x]);
     }
-    // dw1^T[chunk] += dh^T . y,  dw2[chunk] += a^T . g  (contraction over rows)
-    if constexpr (BF16) {
-#pragma unroll
-      for (int k0 = 0; k0 < BM; k0 += 16) {
-        const int ao = (mt * 16 + gid) * S::LDM + k0 + tig * 2;
-        const uint32_t ad[4] = {ld32(dht + ao), ld32(dht + ao + 8 * S::LDM), ld32(dht + ao + 8),
-                                ld32(dht + ao + 8 * S::LDM + 8)};
-        const uint32_t aa[4] = {ld32(at + ao), ld32(at + ao + 8 * S::LDM), ld32(at + ao + 8),
-                                ld32(at + ao + 8 * S::LDM + 8)};
-        const int bo = (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * S::LDC + cq * (C / 4) +
-                       (lane >> 4) * 8;
-#pragma unroll
-        for (int np = 0; np < NQ; np += 2) {
-          uint32_t b[4];
-          ldsm_x4_trans(b, ys + bo + np * 8);
-          mma_16816(acc1[np], ad, b[0], b[1]);
-          mma_16816(acc1[np + 1], ad, b[2], b[3]);
-          ldsm_x4_trans(b, gs + bo + np * 8);
-          mma_16816(acc2[np], aa, b[0], b[1]);
-          mma_16816(acc2[np + 1], aa, b[2], b[3]);
-        }
-      }
-    } else {
-      const float* dh = reinterpret_cast<const float*>(dht);
-      const float* af = reinterpret_cast<const float*>(at);
-      const float* yf = reinterpret_cast<const float*>(ys);
-      const float* gf = reinterpret_cast<const float*>(gs);
-#pragma unroll 2
-      for (int m = 0; m < BM; m += 4) {
-        float4 d[4], a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          d[i] = *reinterpret_cast<const float4*>(dh + (warp + NWARPS * i) * S::LDM + m);
-          a[i] = *reinterpret_cast<const float4*>(af + (warp + NWARPS * i) * S::LDM + m);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-#pragma unroll
-          for (int j = 0; j < NQ; ++j) {
-            const int o = (m + q) * S::LDC + lane + 32 * j;
-            const float yv = yf[o], gv = gf[o];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              acc1[i][j] = fmaf(comp(d[i], q), yv, acc1[i][j]);
-              acc2[i][j] = fmaf(comp(a[i], q), gv, acc2[i][j]);
-            }
-          }
-      }
-    }
-  }
-
-  cp_async_wait_all();  // (a split always has rows: a no-op)
-  float* pw = part + size_t(blockIdx.y) * (2 * size_t(F) * C + F);
-  float* pw1 = pw + size_t(f0) * C;
-  float* pw2 = pw + size_t(F) * C + size_t(f0) * C;
-  if constexpr (BF16) {
-#pragma unroll
-    for (int nt = 0; nt < NQ; ++nt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const size_t o = size_t(mt * 16 + gid + hf * 8) * C + cq * (C / 4) + nt * 8 + tig * 2;
-        *reinterpret_cast<float2*>(pw1 + o) = make_float2(acc1[nt][hf * 2], acc1[nt][hf * 2 + 1]);
-        *reinterpret_cast<float2*>(pw2 + o) = make_float2(acc2[nt][hf * 2], acc2[nt][hf * 2 + 1]);
-      }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        const size_t o = size_t(warp + NWARPS * i) * C + lane + 32 * j;
-        pw1[o] = acc1[i][j];
-        pw2[o] = acc2[i][j];
-      }
-  }
-  if (threadIdx.x < FC) pw[2 * size_t(F) * C + f0 + threadIdx.x] = db1;
+  });
+  float* pw = part + size_t(split) * (2 * size_t(F) * C + F);
+  float* out = pw + size_t(which) * F * C;
+  gm.epilogue([&](const auto& v, int xr, int n) {
+    constexpr int NV = std::extent_v<std::remove_reference_t<decltype(v)>, 1>;
+    const int f = f0 + xr;
+    if (f < F) Vec<float, NV>::store(out + size_t(f) * C + c0 + n, v[0]);
+  });
+  if (sum_db1 && threadIdx.x < 128 && f0 + int(threadIdx.x) < F)
+    pw[2 * size_t(F) * C + f0 + threadIdx.x] = db1;
 }
 
-// ---------------------------------------------------------------- reduction
+// ------------------------------------------------------------ (R) reduction
 // ow[e] = sum over the nsplit weight partials (e < nw), ov[v] = sum over the
-// nblk row-pass partials, each in index order.
+// nblk row partials, each in index order.
 __global__ void ln_mlp_bwd_reduce(const float* __restrict__ pw, int nsplit, int nw,
                                   const float* __restrict__ pv, int nblk, int nv,
                                   float* __restrict__ ow, float* __restrict__ ov) {
@@ -502,80 +603,81 @@ __global__ void ln_mlp_bwd_reduce(const float* __restrict__ pw, int nsplit, int 
   }
 }
 
+// ----------------------------------------------------------- launch plan
+// The wrapper's choices (ops/fused_mlp.py::ln_mlp_bwd_plan), checked here.
 struct Plan {
-  int ga;        // pass A blocks
-  int nsplit;    // pass B row splits
-  int rows_per;  // rows of a split (a multiple of BM)
-  long long pv, pw;  // partial floats of each pass
+  int gn;        // LayerNorm-backward blocks (a persistent grid)
+  int nsplit;    // weight-tile row splits
+  int rows_per;  // rows of a split (a multiple of SPLIT_ROWS)
 };
 
+// The workspace's segments (ops/fused_mlp.py::ln_mlp_bwd_workspace): y,
+// round(a) and round(dh) in T; dy [M, C], the row stats [M, 2] and the two
+// partial-sum buffers ([gn, 3 C] and [nsplit, 2 F C + F]) in float32.
 template <typename T>
-Plan plan(int M, int C, int F) {
-  constexpr int BM = Tile<T>::BM;
-  const int nrb = (M + BM - 1) / BM;
-  const int nchunk = F / FC;
-  Plan p;
-  p.ga = nrb < GRID_A ? nrb : GRID_A;
-  // at most TARGET_B blocks: blocks past it would make a last wave that
-  // runs nearly empty (288 blocks at one an SM fill 73% of three waves)
-  int s0 = TARGET_B / nchunk;
-  s0 = s0 < nrb ? s0 : nrb;
-  s0 = s0 > 0 ? s0 : 1;
-  const int rbs = (nrb + s0 - 1) / s0;
-  p.nsplit = (nrb + rbs - 1) / rbs;
-  p.rows_per = rbs * BM;
-  p.pv = 3LL * C * p.ga;
-  p.pw = (2LL * F * C + F) * p.nsplit;
-  return p;
-}
+struct Ws {
+  T *y, *a, *dh;
+  float *dy, *st, *pv, *pw;
+};
 
 template <typename T, int C>
-cudaError_t launch(const void* x, const void* g, const float* ls, const float* lb,
-                   const void* w1, const float* b1, const void* w2, void* dx, float* ow,
-                   float* ov, int M, int F, float eps, float* ws, cudaStream_t stream) {
-  using S = Smem<T, C>;
-  auto ka = ln_mlp_bwd_rows<T, C>;
-  auto kb = ln_mlp_bwd_weights<T, C>;
-  cudaError_t e = set_smem(reinterpret_cast<const void*>(ka), S::A_TOTAL);
+cudaError_t launch(const T* x, const T* g, const float* ls, const float* lb, const T* w1,
+                   const T* w1k, const T* w2t, const float* b1, T* dx, float* ow, float* ov,
+                   int M, int F, float eps, const Ws<T>& w, const Plan& p, cudaStream_t stream) {
+  T *y = w.y, *wa = w.a, *wdh = w.dh;
+  float *dy = w.dy, *st = w.st, *pv = w.pv, *pw = w.pw;
+  const auto kact = ln_mlp_bwd_act<T>;
+  const auto kdy = ln_mlp_bwd_dy<T>;
+  const auto kw = ln_mlp_bwd_weights<T>;
+  cudaError_t e = set_smem(reinterpret_cast<const void*>(kact), ActGemm<T>::SMEM);
+  if (e == cudaSuccess) e = set_smem(reinterpret_cast<const void*>(kdy), DyGemm<T>::SMEM);
+  if (e == cudaSuccess) e = set_smem(reinterpret_cast<const void*>(kw), WGemm<T>::SMEM);
   if (e != cudaSuccess) return e;
-  e = set_smem(reinterpret_cast<const void*>(kb), S::B_TOTAL);
-  if (e != cudaSuccess) return e;
-  const Plan p = plan<T>(M, C, F);
-  float* pv = ws;
-  float* pw = ws + p.pv;
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  const T* w1t = static_cast<const T*>(w1);
-  const T* w2t = static_cast<const T*>(w2);
-  ka<<<p.ga, NTHREADS, S::A_TOTAL, stream>>>(xt, gt, ls, lb, w1t, b1, w2t, static_cast<T*>(dx),
-                                             pv, M, F, eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  kb<<<dim3(F / FC, p.nsplit), NTHREADS, S::B_TOTAL, stream>>>(xt, gt, ls, lb, w1t, b1, w2t, pw,
-                                                               M, F, p.rows_per, eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  const int mt = (M + 127) / 128;
+  ln_mlp_bwd_ln<T, C><<<(M + NWARPS - 1) / NWARPS, NTHREADS, 0, stream>>>(x, ls, lb, y, st, M,
+                                                                         eps);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  kact<<<dim3(mt, (F + ACT_BN - 1) / ACT_BN), NTHREADS, ActGemm<T>::SMEM, stream>>>(
+      y, g, w1, w2t, b1, wa, wdh, M, C, F);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  kdy<<<dim3(mt, C / DY_BN), NTHREADS, DyGemm<T>::SMEM, stream>>>(wdh, w1k, dy, M, C, F);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  ln_mlp_bwd_norm<T, C><<<p.gn, NTHREADS, 0, stream>>>(x, g, ls, dy, st, dx, pv, M);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  kw<<<dim3((F + 127) / 128, C / 128, 2 * p.nsplit), NTHREADS, WGemm<T>::SMEM, stream>>>(
+      wdh, wa, y, g, pw, M, C, F, p.rows_per);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const int nw = 2 * F * C + F, nv = 3 * C;
-  ln_mlp_bwd_reduce<<<(nw + nv + 255) / 256, 256, 0, stream>>>(pw, p.nsplit, nw, pv, p.ga, nv,
+  ln_mlp_bwd_reduce<<<(nw + nv + 255) / 256, 256, 0, stream>>>(pw, p.nsplit, nw, pv, p.gn, nv,
                                                                ow, ov);
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* x, const void* g, const void* ls, const void* lb, const void* w1,
-             const void* b1, const void* w2, void* dx, void* ow, void* ov, int M, int C, int F,
-             float eps, void* ws, void* stream) {
-  if (F <= 0 || F % FC != 0 || M <= 0) return cudaErrorInvalidValue;
+             const void* w1k, const void* w2t, const void* b1, void* dx, void* ow, void* ov,
+             int M, int C, int F, float eps, void* const* ws, int gn, int nsplit, int rows_per,
+             void* stream) {
+  if (F <= 0 || F % 32 != 0 || M <= 0 || gn < 1 || rows_per <= 0 ||
+      rows_per % SPLIT_ROWS != 0 || nsplit != (M + rows_per - 1) / rows_per)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto t = [](const void* p) { return static_cast<const T*>(p); };
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  T* d = static_cast<T*>(dx);
   float* o1 = static_cast<float*>(ow);
   float* o2 = static_cast<float*>(ov);
-  float* w = static_cast<float*>(ws);
+  const Ws<T> w{static_cast<T*>(ws[0]),     static_cast<T*>(ws[1]),     static_cast<T*>(ws[2]),
+                static_cast<float*>(ws[3]), static_cast<float*>(ws[4]), static_cast<float*>(ws[5]),
+                static_cast<float*>(ws[6])};
+  const Plan p{gn, nsplit, rows_per};
   switch (C) {
     case 256:
-      return launch<T, 256>(x, g, f(ls), f(lb), w1, f(b1), w2, dx, o1, o2, M, F, eps, w, s);
+      return launch<T, 256>(t(x), t(g), f(ls), f(lb), t(w1), t(w1k), t(w2t), f(b1), d, o1, o2,
+                            M, F, eps, w, p, s);
     case 384:
-      return launch<T, 384>(x, g, f(ls), f(lb), w1, f(b1), w2, dx, o1, o2, M, F, eps, w, s);
+      return launch<T, 384>(t(x), t(g), f(ls), f(lb), t(w1), t(w1k), t(w2t), f(b1), d, o1, o2,
+                            M, F, eps, w, p, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -585,29 +687,26 @@ int dispatch(const void* x, const void* g, const void* ls, const void* lb, const
 
 extern "C" {
 
-// Floats of scratch the entries below need for (M, C, F) in float32 (bf16 = 0)
-// or bf16 (bf16 = 1): the two passes' partial sums.
-long long fused_ln_mlp_bwd_workspace(int M, int C, int F, int bf16) {
-  if (M <= 0 || F <= 0 || F % FC != 0) return 0;
-  const Plan p = bf16 ? plan<__nv_bfloat16>(M, C, F) : plan<float>(M, C, F);
-  return p.pv + p.pw;
-}
-
-// Each entry launches three kernels on `stream` and returns cudaGetLastError()
-// (0 = ok).  x, g, dx [M, C] and w1 (= w1^T of the forward, i.e. [F, C]), w2
-// [F, C] in T; ls, lb, b1 float32.  ow (float32, 2 F C + F): dw1^T [F, C], dw2
-// [F, C], db1 [F]; ov (float32, 3 C): dls, dlb, db2.  ws: the workspace.
+// Each entry launches six kernels on `stream` and returns cudaGetLastError()
+// (0 = ok).  x, g, dx [M, C]; w1 [C, F] and w1k = w1^T [F, C], w2t = w2^T
+// [C, F], all in T; ls, lb, b1 float32.  ow (float32, 2 F C + F): dw1^T
+// [F, C], dw2 [F, C], db1 [F]; ov (float32, 3 C): dls, dlb, db2.  ws: the
+// seven workspace segments, in Ws's order, 16-byte aligned; gn, nsplit,
+// rows_per: the launch plan (cudaErrorInvalidValue if it does not cover M).
 int fused_ln_mlp_bwd_f32(const void* x, const void* g, const void* ls, const void* lb,
-                         const void* w1, const void* b1, const void* w2, void* dx, void* ow,
-                         void* ov, int M, int C, int F, float eps, void* ws, void* stream) {
-  return dispatch<float>(x, g, ls, lb, w1, b1, w2, dx, ow, ov, M, C, F, eps, ws, stream);
+                         const void* w1, const void* w1k, const void* w2t, const void* b1,
+                         void* dx, void* ow, void* ov, int M, int C, int F, float eps,
+                         void* const* ws, int gn, int nsplit, int rows_per, void* stream) {
+  return dispatch<float>(x, g, ls, lb, w1, w1k, w2t, b1, dx, ow, ov, M, C, F, eps, ws, gn, nsplit,
+                         rows_per, stream);
 }
 
 int fused_ln_mlp_bwd_bf16(const void* x, const void* g, const void* ls, const void* lb,
-                          const void* w1, const void* b1, const void* w2, void* dx, void* ow,
-                          void* ov, int M, int C, int F, float eps, void* ws, void* stream) {
-  return dispatch<__nv_bfloat16>(x, g, ls, lb, w1, b1, w2, dx, ow, ov, M, C, F, eps, ws,
-                                 stream);
+                          const void* w1, const void* w1k, const void* w2t, const void* b1,
+                          void* dx, void* ow, void* ov, int M, int C, int F, float eps,
+                          void* const* ws, int gn, int nsplit, int rows_per, void* stream) {
+  return dispatch<bf16>(x, g, ls, lb, w1, w1k, w2t, b1, dx, ow, ov, M, C, F, eps, ws, gn, nsplit,
+                        rows_per, stream);
 }
 
 const char* fused_ln_mlp_bwd_error_string(int code) {

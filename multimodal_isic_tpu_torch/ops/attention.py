@@ -16,6 +16,12 @@ H·D)`` is free.
 
 - On a CUDA tensor :func:`flash_attention` launches the hand-written kernel
   of ``csrc/flash_attention.cu`` (built with nvcc at first use), or raises.
+  The wrapper picks the kernel's block shape (:func:`attention_plan`) and
+  gives it a block's shared memory (:func:`attention_smem_bytes`), which
+  the kernel checks against its own layout.  In bf16 the
+  kernel runs q·kᵀ on the tensor cores and p·v as two tensor-core products
+  of p split into bf16 hi + lo (:func:`split_bf16`); in float32 both run as
+  FMAs on the CUDA cores.
 - On a CPU tensor it runs :func:`flash_attention_reference`.
 
 The backward is the JAX one (:120-124): a recompute through the plain
@@ -39,8 +45,14 @@ from . import _build
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HEAD_DIMS = (32, 64)
 _MAX_GRID_Y = 65535
+MAX_WARPS = 8        # warps a block of the card's kernel
+_WARP_ROWS = {torch.bfloat16: 16, torch.float32: 8}  # query rows a warp
+_PAD = {torch.bfloat16: 8, torch.float32: 4}          # shared row padding
+_KT, _STAGES = 64, 2  # keys a ring stage, ring depth
 # Kernel vs plain version, (atol, rtol): float32 arithmetic in another
-# order; the bf16 output may flip one rounding.
+# order; the bf16 output may flip one rounding (the bf16 kernel's products
+# are exact, its sums float32, and its p·v carries p as bf16 hi + lo, 2⁻¹⁷
+# relative).
 TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 
 
@@ -53,17 +65,59 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
 
 
+def split_bf16(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 p as bf16 ``hi = round(p)`` and ``lo = round(p − hi)`` (p − hi
+    is exact in float32): the bf16 kernel's operands of p·v, which carry p to
+    about 2⁻¹⁷ relative."""
+    hi = p.to(torch.bfloat16)
+    return hi, (p - hi.float()).to(torch.bfloat16)
+
+
+def attention_plan(n: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(warps a block, query blocks) of the card's kernel for N queries: a
+    warp owns 16 (bf16) or 8 (float32) query rows, a block at most
+    ``MAX_WARPS`` warps, and N is cut into the fewest blocks, evened out, so
+    only whole warps past N idle (N 196 bf16: 2 blocks of 7 warps)."""
+    tiles = -(-n // _WARP_ROWS[dtype])
+    blocks = -(-tiles // MAX_WARPS)
+    return -(-tiles // blocks), blocks
+
+
+def attention_smem_bytes(d: int, warps: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block of ``csrc/flash_attention.cu`` (its
+    ``smem_bytes``): the query tile [warps·rows, D + pad], the 2-stage K/V
+    ring [2, 2, 64, D + pad] and, in float32, the per-warp p tiles [warps·8,
+    64 + 4]."""
+    esz = torch.finfo(dtype).bits // 8
+    ld = (d + _PAD[dtype]) * esz
+    rows = warps * _WARP_ROWS[dtype]
+    pt = rows * (_KT + 4) * 4 if dtype == torch.float32 else 0
+    return rows * ld + _STAGES * 2 * _KT * ld + pt
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"flash_attention_{sfx}")
-        fn.argtypes = [vp] * 4 + [i32] * 13 + [vp]
+        fn.argtypes = [vp] * 4 + [i32] * 14 + [ctypes.c_longlong, vp]
         fn.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_attention_kernel_shape(b: int, h: int, d: int) -> None:
+    """Raise ``ValueError`` where the card's kernel cannot take [B, H, N, D]:
+    a head dim it is not built for, or more (b, h) pairs than a grid's y
+    extent.  (Every head dim it is built for fits two blocks an SM at any
+    N: :func:`attention_smem_bytes`.)"""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim must be in {HEAD_DIMS}, "
+                         f"got {d}")
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention: B·H {b * h} > {_MAX_GRID_Y}")
 
 
 def _check(q, k, v):
@@ -78,12 +132,7 @@ def _check(q, k, v):
                          f"CUDA device, got {q.device}")
     if q.device.type == "cpu":
         return
-    b, h, n, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim must be in {HEAD_DIMS}, "
-                         f"got {d}")
-    if b * h > _MAX_GRID_Y:
-        raise ValueError(f"flash_attention: B·H {b * h} > {_MAX_GRID_Y}")
+    check_attention_kernel_shape(q.shape[0], q.shape[1], q.shape[3])
     vec = 16 // q.element_size()  # the kernel moves 16 bytes at a time
     for t in (q, k, v):
         if t.device != q.device:
@@ -103,12 +152,14 @@ def _kernel(q, k, v) -> torch.Tensor:
     if out.numel() == 0:
         return out
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    warps, _ = attention_plan(n, q.dtype)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, f"flash_attention_{_SUFFIX[q.dtype]}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, n, d, *strides, stream)
+            b, h, n, d, *strides, warps,
+            attention_smem_bytes(d, warps, q.dtype), stream)
     if rc != 0:
         raise RuntimeError("flash_attention launch failed: "
                            f"{lib.flash_attention_error_string(rc).decode()}")

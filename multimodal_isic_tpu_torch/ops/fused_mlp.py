@@ -41,7 +41,11 @@ The LayerNorm MLP's backward is the counterpart of the TPU kernel's
 (``fused_mlp.py:239-347``): :func:`fused_ln_mlp_backward` launches
 ``csrc/fused_ln_mlp_bwd.cu`` on the card and runs
 :func:`fused_ln_mlp_backward_reference` on the CPU.  Both recompute the
-forward from x; neither is autograd through the plain forward.
+forward from x; neither is autograd through the plain forward.  On the card
+the kernels write round(a) and round(dh) ([M, F] in x.dtype), y, dy and the
+partial sums to a workspace laid out by :func:`ln_mlp_bwd_workspace`;
+:func:`ln_mlp_bwd_plan` chooses the kernels' grids, and the library refuses
+a plan that does not cover the rows.
 The public :func:`fused_ln_mlp` goes through a ``torch.autograd.Function``
 that pairs the two, so a result on the card stays on the autograd graph.
 Launches are counted in ``fused_ln_mlp.launches`` and
@@ -162,16 +166,53 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+# The backward's launch plan, which the kernels' library checks:
+# LayerNorm-backward blocks (8 rows a block, a persistent grid of at most
+# 264), and the weight GEMMs' split of the M rows into ranges of whole
+# 32-row units so that their [F/128 × C/128 × 2] tiles times the splits
+# stay at most 264 blocks (two an SM).
+_BWD_LN_GRID, _BWD_W_TARGET, _BWD_ALIGN, _BWD_SPLIT_ROWS = 264, 264, 256, 32
+
+
+def ln_mlp_bwd_plan(m: int, c: int, f: int) -> dict:
+    """The backward kernels' grid choices for x [M, C], F: ``norm_blocks``
+    (LayerNorm-backward blocks), ``nsplit`` and ``rows_per`` (the weight
+    GEMMs' row splits, each a whole number of 32-row units, none empty)."""
+    tiles = 2 * -(-f // 128) * -(-c // 128)
+    units = -(-m // _BWD_SPLIT_ROWS)
+    s = min(max(_BWD_W_TARGET // tiles, 1), units)
+    rows_per = -(-units // s) * _BWD_SPLIT_ROWS
+    return {"norm_blocks": min(-(-m // 8), _BWD_LN_GRID),
+            "nsplit": -(-m // rows_per), "rows_per": rows_per}
+
+
+def ln_mlp_bwd_workspace(m: int, c: int, f: int,
+                         dtype: torch.dtype) -> tuple[list[int], int]:
+    """(byte offsets of the seven segments, bytes in all) of the backward's
+    workspace: y [M, C], round(a) and round(dh) [M, F] in ``dtype``; dy
+    [M, C] and the row statistics [M, 2] in float32; the LayerNorm-backward
+    partials [blocks, 3, C] and the weight partials [nsplit, 2·F·C + F] in
+    float32; each segment 256-byte aligned."""
+    p = ln_mlp_bwd_plan(m, c, f)
+    esz = torch.finfo(dtype).bits // 8
+    sizes = (m * c * esz, m * f * esz, m * f * esz, m * c * 4, m * 8,
+             p["norm_blocks"] * 3 * c * 4, p["nsplit"] * (2 * f * c + f) * 4)
+    offs, o = [], 0
+    for n in sizes:
+        offs.append(o)
+        o += -(-n // _BWD_ALIGN) * _BWD_ALIGN
+    return offs, o
+
+
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("fused_ln_mlp_bwd")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"fused_ln_mlp_bwd_{sfx}")
-        fn.argtypes = [vp] * 10 + [i32] * 3 + [ctypes.c_float, vp, vp]
+        fn.argtypes = ([vp] * 11 + [i32] * 3 + [ctypes.c_float,
+                       ctypes.POINTER(vp)] + [i32] * 3 + [vp])
         fn.restype = i32
-    lib.fused_ln_mlp_bwd_workspace.argtypes = [i32] * 4
-    lib.fused_ln_mlp_bwd_workspace.restype = ctypes.c_longlong
     lib.fused_ln_mlp_bwd_error_string.argtypes = [i32]
     lib.fused_ln_mlp_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -194,7 +235,16 @@ def _check(x, ls, lb, w1, b1, w2, b2):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_ln_mlp: tensors must be on the CPU or a "
                          f"CUDA device, got {x.device}")
-    if x.device.type == "cuda" and (c not in CHANNELS or f % F_STEP):
+    if x.device.type == "cuda":
+        check_ln_mlp_kernel_shape(c, f)
+
+
+def check_ln_mlp_kernel_shape(c: int, f: int) -> None:
+    """Raise ``ValueError`` where the card's LN-MLP kernels (forward and
+    backward) cannot take C, F: C is a template argument (ConvViT-Base's
+    conv-stage widths) and F is walked in 32-wide chunks and 16-byte
+    copies."""
+    if c not in CHANNELS or f % F_STEP:
         raise ValueError(f"fused_ln_mlp: the kernel takes C in {CHANNELS} and "
                          f"F a multiple of {F_STEP}, got C={c}, F={f}")
 
@@ -246,8 +296,9 @@ def fused_ln_mlp_backward(x: torch.Tensor, g: torch.Tensor, ls: torch.Tensor,
     """Gradients of :func:`fused_ln_mlp` at x [M, C] for the output
     cotangent g [M, C] → (dx [M, C] in x.dtype, dls, dlb, dw1 [C, F],
     db1, dw2 [F, C], db2), the parameter gradients summed in float32 and
-    returned in each parameter's dtype.  The [M, F] intermediate is
-    recomputed inside the kernel and never stored."""
+    returned in each parameter's dtype.  On the card the [M, F]
+    intermediates round(a) and round(dh) go to a workspace
+    (:func:`ln_mlp_bwd_workspace`) that lives for the call."""
     _check(x, ls, lb, w1, b1, w2, b2)
     if tuple(g.shape) != tuple(x.shape):
         raise ValueError(f"g must be {tuple(x.shape)}, got {tuple(g.shape)}")
@@ -258,10 +309,11 @@ def fused_ln_mlp_backward(x: torch.Tensor, g: torch.Tensor, ls: torch.Tensor,
     m, c = x.shape
     f = w1.shape[-1]
     x, g = _aligned(x), _aligned(g.to(dt))
+    w1c = w1.to(dt).contiguous()       # [C, F]: the JAX layout
     w1k = w1.t().to(dt).contiguous()   # [F, C]: fc1's conv weight
-    w2k = w2.to(dt).contiguous()       # [F, C]: the JAX layout
+    w2t = w2.t().to(dt).contiguous()   # [C, F]: fc2's conv weight
     vecs = [t.float().contiguous() for t in (ls, lb, b1)]
-    _on(x.device, g, w1k, w2k, *vecs)
+    _on(x.device, g, w1c, w1k, w2t, *vecs)
     dx = torch.empty_like(x)
     # float32 sums: [dw1ᵀ (F×C) | dw2 (F×C) | db1 (F)] and [dls | dlb | db2]
     new = torch.empty if m > 0 else torch.zeros
@@ -269,16 +321,20 @@ def fused_ln_mlp_backward(x: torch.Tensor, g: torch.Tensor, ls: torch.Tensor,
     ov = new(3 * c, dtype=torch.float32, device=x.device)
     if m > 0:
         lib = _bwd_lib()
-        bf16 = int(dt == torch.bfloat16)
-        ws = torch.empty(lib.fused_ln_mlp_bwd_workspace(m, c, f, bf16),
-                         dtype=torch.float32, device=x.device)
+        plan = ln_mlp_bwd_plan(m, c, f)
+        offs, nbytes = ln_mlp_bwd_workspace(m, c, f, dt)
+        ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        segs = (ctypes.c_void_p * len(offs))(*(ws.data_ptr() + o
+                                               for o in offs))
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             rc = getattr(lib, f"fused_ln_mlp_bwd_{_SUFFIX[dt]}")(
                 x.data_ptr(), g.data_ptr(), vecs[0].data_ptr(),
-                vecs[1].data_ptr(), w1k.data_ptr(), vecs[2].data_ptr(),
-                w2k.data_ptr(), dx.data_ptr(), ow.data_ptr(), ov.data_ptr(),
-                m, c, f, eps, ws.data_ptr(), stream)
+                vecs[1].data_ptr(), w1c.data_ptr(), w1k.data_ptr(),
+                w2t.data_ptr(), vecs[2].data_ptr(), dx.data_ptr(),
+                ow.data_ptr(), ov.data_ptr(), m, c, f, eps, segs,
+                plan["norm_blocks"], plan["nsplit"], plan["rows_per"],
+                stream)
         if rc != 0:
             raise RuntimeError(
                 "fused_ln_mlp_backward launch failed: "

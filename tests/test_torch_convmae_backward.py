@@ -296,3 +296,64 @@ def test_mbconv_wrappers_refuse_autograd():
     assert not y.requires_grad
     y, _ = tfd.dw_silu_pool(x.detach(), wd, bd)
     assert not y.requires_grad
+
+
+# ------------------------------------------ the backward kernels' host side
+
+@pytest.mark.parametrize("m,c,f,plan", [
+    (50176, 256, 1024, (264, 8, 6272)),     # stage 1, bs 16
+    (12544, 384, 1536, (264, 3, 4192)),     # stage 2, bs 16
+    (200704, 256, 1024, (264, 8, 25088)),   # stage 1, bs 64
+    (50176, 384, 1536, (264, 3, 16736)),    # stage 2, bs 64
+    (1000, 256, 1024, (125, 8, 128)),       # the ragged edge
+    (77, 256, 96, (10, 3, 32))])
+def test_ln_mlp_bwd_plan_at_the_path_geometries(m, c, f, plan):
+    """The weight GEMMs' [F/128 × C/128 × 2] tiles times their row splits
+    stay at most 264 blocks (two an SM): 32 × 8 at stage 1, 72 × 3 at stage
+    2; the LayerNorm backward runs a persistent grid of at most 264."""
+    p = tmlp.ln_mlp_bwd_plan(m, c, f)
+    assert (p["norm_blocks"], p["nsplit"], p["rows_per"]) == plan
+
+
+def test_ln_mlp_bwd_plan_splits_cover_the_rows():
+    for c, f in ((256, 1024), (384, 1536), (256, 96)):
+        tiles = 2 * -(-f // 128) * -(-c // 128)
+        for m in list(range(1, 600)) + [12543, 12544, 50175, 50177, 200704]:
+            p = tmlp.ln_mlp_bwd_plan(m, c, f)
+            n, per = p["nsplit"], p["rows_per"]
+            assert per % 32 == 0
+            assert n * per >= m > (n - 1) * per  # every row, no empty split
+            assert n * tiles <= max(264, tiles)
+            assert 1 <= p["norm_blocks"] <= 264
+
+
+def test_ln_mlp_bwd_workspace_bytes():
+    """y [M, C], round(a) and round(dh) [M, F] in the dtype; dy [M, C] and
+    the row statistics in float32; the two partial buffers; 256-byte
+    segments.  At stage 1 bs 16 f32 the [M, F] pair is 411 MB of the 532."""
+    m, c, f = 50176, 256, 1024
+    sizes = [m * c * 4, m * f * 4, m * f * 4, m * c * 4, m * 8,
+             264 * 3 * c * 4, 8 * (2 * f * c + f) * 4]
+    offs, total = tmlp.ln_mlp_bwd_workspace(m, c, f, torch.float32)
+    assert total == sum(sizes)
+    assert offs == list(np.cumsum([0] + sizes[:-1]))
+    assert 2 * m * f * 4 == 411041792
+    # in bf16, y, round(a) and round(dh) take half the bytes
+    assert tmlp.ln_mlp_bwd_workspace(m, c, f, torch.bfloat16)[1] == \
+        total - (m * c * 2 + 2 * m * f * 2)
+    # odd sizes: every segment starts 256-byte aligned, past the one before
+    offs, total = tmlp.ln_mlp_bwd_workspace(77, 256, 96, torch.bfloat16)
+    ends = offs[1:] + [total]
+    assert all(o % 256 == 0 for o in offs + [total])
+    assert ends[:3] == [o + 256 * -(-77 * n * 2 // 256)
+                        for o, n in zip(offs, (256, 96, 96))]
+
+
+def test_ln_mlp_kernel_shape_checks():
+    for c in tmlp.CHANNELS:
+        tmlp.check_ln_mlp_kernel_shape(c, 4 * c)
+    tmlp.check_ln_mlp_kernel_shape(256, 96)
+    with pytest.raises(ValueError, match="C in"):
+        tmlp.check_ln_mlp_kernel_shape(192, 768)
+    with pytest.raises(ValueError, match="multiple of"):
+        tmlp.check_ln_mlp_kernel_shape(256, 100)

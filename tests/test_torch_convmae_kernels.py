@@ -162,3 +162,98 @@ def test_plain_versions_keep_the_kernels_rounding_points():
     np.testing.assert_allclose(got.double().numpy(), want.numpy(),
                                rtol=1.6e-2, atol=1.6e-2)
     assert float((got.double() - want).abs().gt(1e-9).float().mean()) < 0.05
+
+
+# ------------------------------------------------- the kernels' host side
+
+@pytest.mark.parametrize("n,dtype,plan", [
+    (196, torch.bfloat16, (7, 2)), (197, torch.bfloat16, (7, 2)),
+    (49, torch.bfloat16, (4, 1)), (1, torch.bfloat16, (1, 1)),
+    (49, torch.float32, (7, 1)), (196, torch.float32, (7, 4)),
+    (300, torch.float32, (8, 5))])
+def test_attention_plan_fills_whole_warps(n, dtype, plan):
+    """The latent geometry (N 196 bf16) runs as 2 blocks of 7 warps a (b, h)
+    pair and the validation encoder's (N 49 f32) as one block of 7."""
+    assert tattn.attention_plan(n, dtype) == plan
+
+
+def test_attention_plan_idles_fewer_warps_than_blocks():
+    for dtype, rows in ((torch.bfloat16, 16), (torch.float32, 8)):
+        for n in range(1, 1200):
+            warps, blocks = tattn.attention_plan(n, dtype)
+            assert 1 <= warps <= tattn.MAX_WARPS
+            covered = warps * blocks * rows
+            assert covered >= n  # every query has a warp
+            assert covered - n < rows * blocks  # idle: < one warp a block
+
+
+def test_attention_smem_budget():
+    """One block's shared memory (query tile, 2-stage K/V ring, float32 p
+    tiles) at every head dim, dtype and block width stays under the H100's
+    227 KB, and two blocks fit an SM."""
+    assert tattn.attention_smem_bytes(64, 7, torch.bfloat16) == (
+        7 * 16 * 72 * 2 + 2 * 2 * 64 * 72 * 2)
+    assert tattn.attention_smem_bytes(64, 7, torch.float32) == (
+        7 * 8 * 68 * 4 + 2 * 2 * 64 * 68 * 4 + 7 * 8 * 68 * 4)
+    for d in tattn.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for w in range(1, tattn.MAX_WARPS + 1):
+                assert 2 * tattn.attention_smem_bytes(d, w, dtype) \
+                    <= tmlp.SMEM_LIMIT
+
+
+def test_attention_kernel_shape_checks():
+    tattn.check_attention_kernel_shape(128, 12, 64)
+    tattn.check_attention_kernel_shape(16, 16, 32)
+    with pytest.raises(ValueError, match="head dim"):
+        tattn.check_attention_kernel_shape(2, 2, 48)
+    with pytest.raises(ValueError, match="B·H"):
+        tattn.check_attention_kernel_shape(65536, 1, 64)
+
+
+def _attention_bf16_emulation(q, k, v):
+    """The bf16 kernel's arithmetic in torch: float32 scores of the bf16
+    operands scaled after the product, an online softmax over 64-key
+    tiles, p split into bf16 hi + lo for p·v (float32 sums), one rounding."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:-1] + (1,), -torch.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros(qf.shape)
+    for t in range(0, k.shape[-2], 64):
+        s = (qf @ kf[..., t:t + 64, :].transpose(-1, -2)) * np.float32(scale)
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        al = torch.exp(m - mx)
+        p = torch.exp(s - mx)
+        hi, lo = tattn.split_bf16(p)
+        o = o * al + hi.float() @ vf[..., t:t + 64, :] \
+            + lo.float() @ vf[..., t:t + 64, :]
+        l = l * al + p.sum(-1, keepdim=True)
+        m = mx
+    return o / l
+
+
+def test_attention_bf16_split_stays_inside_tol_at_the_latent_geometry():
+    """The bf16 kernel's p·v as hi.v + lo.v, at the latent extraction's
+    [128, 12, 196, 64] on views of a bf16 qkv projection: before the final
+    rounding it is within 2^-14 of |out| of the float32 plain version, and
+    after it inside ``attention.TOL[bf16]`` of the plain version."""
+    rng = np.random.RandomState(5)
+    atol, rtol = tattn.TOL[torch.bfloat16]
+    worst_f32, worst = 0.0, 0.0
+    for _ in range(8):  # 8 chunks of 16 images
+        qkv = torch.from_numpy(
+            rng.randn(16, 196, 3, 12, 64).astype(np.float32) * 1.5
+        ).to(torch.bfloat16)
+        q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+        got = _attention_bf16_emulation(q, k, v)
+        exact = torch.softmax(
+            (q.float() / 8.0) @ k.float().transpose(-1, -2), -1) @ v.float()
+        want = tattn.flash_attention_reference(q, k, v)
+        worst_f32 = max(worst_f32, float(
+            ((got - exact).abs() / exact.abs().amax()).max()))
+        err = (got.to(torch.bfloat16).float() - want.float()).abs()
+        assert bool((err <= atol + rtol * want.float().abs()).all())
+        worst = max(worst, float(err.max()))
+    assert worst_f32 < 2.0 ** -14
+    assert worst <= 2.0 ** -6  # one bf16 ulp of |out| < 2

@@ -365,10 +365,14 @@ def test_fused_ln_mlp_kernel_rejects_what_it_cannot_take(cuda):
                                               cuda))
 
 
+# N 1, 49, 196 and 197 (a ragged last warp and key tile) at D 32 and 64,
+# and N 300 (three query blocks, five key tiles)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,n,d", [(2, 3, 196, 64), (3, 12, 49, 64),
                                      (2, 16, 196, 32), (1, 2, 1, 64),
-                                     (2, 2, 300, 32)])
+                                     (2, 2, 300, 32), (2, 3, 197, 64),
+                                     (2, 3, 197, 32), (3, 4, 49, 32),
+                                     (1, 2, 1, 32)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, n, d):
     g = torch.Generator(device=cuda).manual_seed(7)
     # q, k, v as the model hands them over: views of a [B, N, 3, H, D] qkv
@@ -381,9 +385,22 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, n, d):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (b, h, n, d)
     _close(got, attn.flash_attention_reference(q, k, v), attn.TOL[dtype])
-    # contiguous operands give the same result
-    _close(attn.flash_attention(q.contiguous(), k.contiguous(),
-                                v.contiguous()), got, attn.TOL[dtype])
+    # contiguous operands give the same bits, and so does a rerun
+    assert torch.equal(attn.flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous()), got)
+    assert torch.equal(attn.flash_attention(q, k, v), got)
+
+
+def test_flash_attention_kernel_refuses_a_wrong_smem_size(cuda, monkeypatch):
+    """The kernel checks the wrapper's shared-memory size against its own
+    layout and refuses a launch where they differ."""
+    q = torch.randn(1, 2, 49, 64, device=cuda)
+    attn.flash_attention(q, q, q)
+    size = attn.attention_smem_bytes
+    monkeypatch.setattr(attn, "attention_smem_bytes",
+                        lambda d, w, dt: size(d, w, dt) + 16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        attn.flash_attention(q, q, q)
 
 
 def test_flash_attention_matches_sdpa(cuda):
@@ -440,9 +457,12 @@ def test_fused_front_kernel_rejects_what_it_cannot_take(cuda):
         fcb.fused_front(*args)
 
 
+# M past the 128-row tiles and the weight GEMMs' row splits (300, 1000,
+# 2049, 77), both stages' C, a ragged F tile (96)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,c,f", [(300, 384, 1536), (1000, 256, 1024),
-                                   (77, 256, 96), (12544, 384, 1536)])
+                                   (77, 256, 96), (12544, 384, 1536),
+                                   (2049, 256, 1024), (1000, 384, 1536)])
 def test_fused_ln_mlp_backward_kernel_matches_plain(cuda, dtype, m, c, f):
     g = torch.Generator(device=cuda).manual_seed(11)
     x = (torch.randn(m, c, generator=g, device=cuda) * 2 + 0.5).to(dtype)
@@ -465,6 +485,23 @@ def test_fused_ln_mlp_backward_kernel_matches_plain(cuda, dtype, m, c, f):
     again = fm.fused_ln_mlp_backward(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
+
+def test_fused_ln_mlp_backward_kernel_refuses_a_plan_short_of_the_rows(
+        cuda, monkeypatch):
+    """The library checks the wrapper's launch plan: row splits that do not
+    cover M, or are not whole 32-row units, are refused."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    m, c, f = 1000, 256, 1024
+    x = torch.randn(m, c, generator=g, device=cuda)
+    args = (x, x.clone(), *_convblock_params(g, c, f, torch.float32, cuda))
+    fm.fused_ln_mlp_backward(*args)
+    plan = fm.ln_mlp_bwd_plan
+    for bad in ({"nsplit": plan(m, c, f)["nsplit"] - 1},
+                {"rows_per": plan(m, c, f)["rows_per"] - 1}):
+        monkeypatch.setattr(fm, "ln_mlp_bwd_plan",
+                            lambda *a, bad=bad: {**plan(*a), **bad})
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fm.fused_ln_mlp_backward(*args)
 
 
 def _mlp_args(g, m, c, f, c2, dtype, device):
