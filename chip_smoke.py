@@ -12,7 +12,9 @@ width with random weights from a seed:
    ``csrc/convmae_common.cuh`` 13 sources), one nvcc per source, started
    together;
 3. holds each fused MBConv kernel against its plain PyTorch version at every
-   geometry the B3@380 serving forward gives it, in bf16 and float32;
+   geometry the B3@380 serving forward gives it, at bs 16 and bs 128 in bf16
+   and float32, checks that a rerun gives the same bits of y and pool and
+   that a bf16 call makes one device launch and no memset;
 4. serves 64 in-memory requests (rendered 450×600 samples, centroid-cropped
    to 450²) in batches of 16 through preprocess → BN-folded fusion net on the
    fused-kernel path → ``make_fusion_eval_step`` → ``evaluate_test``; checks
@@ -32,9 +34,11 @@ width with random weights from a seed:
 7. trains 20 steps on one fixed batch (no augmentation, the same dropout
    masks every step) and checks that the loss falls;
 8. times the kernels against their plain versions (and the warp against
-   ``grid_sample``), the fast policy, the train step in img/s at bs 16 f32
-   and bs 128 with a bf16 backbone, and preprocess + folded forward on the
-   kernel path against the plain path, with CUDA events;
+   ``grid_sample``; the fused MBConv kernels at bs 16 and bs 128), the fast
+   policy, the train step in img/s at bs 16 f32 and bs 128 with a bf16
+   backbone, and preprocess + folded forward on the kernel path against the
+   plain path, with CUDA events, and profiles that forward at bs 16 and 128
+   on both paths;
 9. radiomics extraction (the 13-filter bank × six texture classes +
    shape2D, 4,872 features an image): holds the GLCM, GLRLM-runs,
    joint-histogram and connected-components kernels bit for bit against
@@ -338,8 +342,22 @@ def _kernel_inputs(kind, bsz, h, cin, cmid, k, dtype, device, g):
     return (x, we.t(), be, wd.permute(2, 3, 1, 0), bd)
 
 
+def device_launches(fn):
+    """Names of the device activities (kernels, memsets, copies) of one call
+    of ``fn``, traced by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def check_kernels(device, bsz=BATCH):
-    """Every distinct slice geometry, bf16 and f32: kernel vs plain."""
+    """Every distinct slice geometry, bf16 and f32: kernel vs plain, the same
+    bits of y and pool on a rerun, and (bf16) one device launch a call with
+    no memset."""
     from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
     fns = {"dw": (fd.dw_silu_pool, fd.dw_silu_pool_reference),
            "expand": (fd.expand_dw_silu_pool, fd.expand_dw_silu_pool_reference)}
@@ -361,16 +379,27 @@ def check_kernels(device, bsz=BATCH):
             assert pool.shape == (bsz, cmid) and pool.dtype == torch.float32
             ey, oky = _allclose_err(y, y_ref, *TOL[dtype]["y"])
             ep, okp = _allclose_err(pool, pool_ref, *TOL[dtype]["pool"])
-            label = f"{kind:6s} {h}²·{cin}→{cmid} k{k} {str(dtype)[6:]}"
-            print(f"check {label}: max_abs_err y {ey:.3e} pool {ep:.3e} "
-                  f"({'ok' if oky and okp else 'FAIL'})")
+            y2, pool2 = fn(*args)
+            same = bool(torch.equal(y2, y) and torch.equal(pool2, pool))
+            one = True
+            if dtype == torch.bfloat16:
+                names = device_launches(lambda: fn(*args))
+                one = len(names) == 1 and "mbconv" in names[0]
+            plan = fd.mbconv_plan(bsz, h, h, cin, cmid, k, dtype,
+                                  kind == "expand")
+            label = f"{kind:6s} {h}²·{cin}→{cmid} k{k} bs{bsz} {str(dtype)[6:]}"
+            print(f"check {label}: max_abs_err y {ey:.3e} pool {ep:.3e}; "
+                  f"rerun {'same bits' if same else 'DIFFERENT BITS'}"
+                  + ("" if dtype != torch.bfloat16 else
+                     f"; launches {names}") + f"; plan {plan} "
+                  f"({'ok' if oky and okp and same and one else 'FAIL'})")
             if dtype == torch.bfloat16:
                 name = fn.__name__
                 worst[name] = max(worst[name], ey)
-            if not (oky and okp):
+            if not (oky and okp and same and one):
                 failures.append(label)
     if failures:
-        raise AssertionError(f"kernel vs plain out of tolerance: {failures}")
+        raise AssertionError(f"kernel vs plain, rerun or launches: {failures}")
     return worst
 
 
@@ -399,9 +428,10 @@ def warp_bound_ms(bsz, h, w, c, out_hw):
 
 
 def time_kernels(device, bsz=BATCH, dtype=torch.bfloat16):
-    """Per-geometry kernel vs plain time (ms) at the serving batch, and the
-    per-forward totals over the blocks that use each geometry: kernel,
-    plain, bound, and the bound's bytes and operations parts."""
+    """Per-geometry kernel vs plain time (ms) at batch ``bsz``, with the
+    bound and its share, and the per-forward totals over the blocks that use
+    each geometry: kernel, plain, bound, and the bound's bytes and
+    operations parts."""
     from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
     from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
     fns = {"dw": (fd.dw_silu_pool, fd.dw_silu_pool_reference),
@@ -431,6 +461,10 @@ def time_kernels(device, bsz=BATCH, dtype=torch.bfloat16):
         name = "dw_silu_pool" if geo[0] == "dw" else "expand_dw_silu_pool"
         for i, v in enumerate(per_geo[geo]):
             totals[name][i] += v
+    for name, (ker, pln, bnd, _, _) in totals.items():
+        print(f"time {name} a serving forward bs{bsz} {str(dtype)[6:]}: "
+              f"kernel {ker:.4f} ms, plain {pln:.4f} ms, bound {bnd:.4f} ms "
+              f"({bnd / ker:.1%} of it)")
     return totals
 
 
@@ -2251,8 +2285,10 @@ def main() -> int:
             if "registers" in line or "bytes stack" in line or "Compiling" in line:
                 print("  ptxas:", line.strip())
 
-    # 3. fused kernels vs plain at every serving geometry
+    # 3. fused kernels vs plain at every serving geometry, bs 16 and 128
     worst_err = check_kernels(device)
+    for name, err in check_kernels(device, LARGE_BATCH).items():
+        worst_err[name] = max(worst_err[name], err)
 
     # 4. the serving slice end to end
     reqs = make_requests(N_REQUESTS)
@@ -2340,6 +2376,7 @@ def main() -> int:
     # 8. times
     warp_times = time_training(device, train_ds)
     totals = time_kernels(device)
+    time_kernels(device, LARGE_BATCH)  # printed; the kernels line keeps bs 16
     for bsz in (BATCH, LARGE_BATCH):
         reps = -(-bsz // N_REQUESTS)
         batch = {k: torch.cat([v] * reps)[:bsz] for k, v in dev_reqs.items()}
@@ -2372,6 +2409,8 @@ def main() -> int:
               f"{bsz / med['plain']:.1f} img/s (median, best "
               f"{bsz / best['plain']:.1f}); preprocess alone "
               f"{t_pre['median'] * 1e3:.3f} ms")
+        for name, m in (("kernel", kernel_m), ("plain", plain_m)):
+            profile_steps(lambda: serve(m), f"serve bs{bsz} bf16 {name} path")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB; wall {time.perf_counter() - t_start:.1f} s")
 

@@ -16,8 +16,11 @@ the model's views of its OIHW parameters reach them without a copy.
   the card's smoke run holds the kernels against.
 
 The TPU VMEM fit model (``pick_row_tile_*``, ``fits_pallas_*``) has no
-counterpart: the CUDA kernel tiles rows to its shared-memory budget itself,
-so every stride-1 block of the serving forward takes a kernel.
+counterpart.  The wrapper owns the card's launch plan (:func:`mbconv_plan`:
+channel chunk, row tile or band, shared memory), which the kernel checks
+against its own layout; every stride-1 block of the serving forward takes a
+kernel.  Each call is one launch: y and the pool come from ``torch.empty``
+(the kernel writes every entry, the pool in the same order on every run).
 
 Neither kernel has a backward, as the JAX kernels have no VJP: each wrapper
 raises when grad mode is on and an input requires grad, on every device, and
@@ -42,6 +45,12 @@ from .depthwise import depthwise_conv2d
 KERNEL_SIZES = (3, 5)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MAX_BATCH = 65535  # gridDim.z
+
+# The card's kernels (csrc/fused_dwconv.cu; its constants of the same names)
+MAX_SMEM = 232448      # shared memory a block may have on the H100
+TWO_BLOCKS = 115712    # a block's share when two share an SM (228 KB less 1 KB each)
+SMS = 132              # the H100's SMs
+_THREADS, _CC, _MG, _BK, _STAGES, _DEPTH = 256, 64, 128, 32, 3, 3
 
 
 # ----------------------------------------------------------- plain versions
@@ -68,20 +77,149 @@ def expand_dw_silu_pool_reference(x: torch.Tensor, we: torch.Tensor,
     return dw_silu_pool_reference(F.silu(e).to(x.dtype), wd, bd)
 
 
+# ---------------------------------------------------------- the launch plan
+
+def _a16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def expand_smem_bytes(tile: int, w: int, k: int, cin: int, esz: int,
+                      cc: int = _CC) -> int:
+    """Shared memory of one expand block (the kernel's ``ExpandSmem``): the
+    halo buffer [tile + K - 1][W + K - 1][cc], the weight chunk [cc][Cin to
+    a multiple of the k-slice, + pad], the 3-stage ring [128][k-slice +
+    pad] (k-slice 32, 64 at cc 128) and the pool's 8 slot sums of cc
+    channels, in bytes of ``esz``-byte elements."""
+    p, pad = (k - 1) // 2, 8 if esz == 2 else 4
+    bk = 2 * _BK if cc == 2 * _CC else _BK
+    kp = -(-cin // bk) * bk
+    return (_a16((tile + 2 * p) * (w + 2 * p) * cc * esz)
+            + _a16(cc * (kp + pad) * esz)
+            + _a16(_STAGES * _MG * (bk + pad) * esz)
+            + 8 * cc * 4 + 16)
+
+
+def dw_smem_bytes(cc: int, w: int, k: int, esz: int) -> int:
+    """Shared memory of one dw block (the kernel's ``DwSmem``): K + 3 row
+    buffers [W + K - 1][cc] and the pool's slot sums."""
+    p = (k - 1) // 2
+    return (_a16((w + 2 * p) * cc * esz) * (k + _DEPTH)
+            + _THREADS // (cc // 2) * cc * 4 + 16)
+
+
+@functools.cache
+def mbconv_plan(b: int, h: int, w: int, cin: int, cmid: int, k: int,
+                dtype: torch.dtype, expand: bool = True) -> dict:
+    """The card's launch plan for one call on [b, h, w, cin] → cmid channels
+    (``expand=False``: the dw kernel, cin == cmid).
+
+    - ``cc``: channels a block.  Expand: 128 in bf16 (512 threads, one
+      block an SM: x is read Cmid/128 times) where rounding Cmid up to 128
+      wastes at most an eighth of it and one block covers the image (no
+      halo rows computed twice, the pool written directly), else 64 (256
+      threads, two blocks an SM); dw: up to 64, halved until the row ring
+      fits;
+    - ``rows`` and ``n_tiles``: output rows a block and blocks along H,
+      covering H once (the last may be short).  Expand: the tallest tile
+      whose block fits its share of the SM (``TWO_BLOCKS`` at cc 64, or
+      ``MAX_SMEM`` where that leaves fewer than 4 rows; ``MAX_SMEM`` at cc
+      128); then evened out over the same tile count.  dw:
+      bands that give the nearest whole number of blocks to two an SM across
+      the batch, of at least 4 rows (each band reads K - 1 halo rows again);
+    - ``n_chunks``, ``smem`` (bytes; the kernel refuses any other) and
+      ``pool``: "direct" where one block covers its image's rows, else
+      "partials" (float32 partial sums [n_tiles, b, cmid], added in tile
+      order by the last block of each (image, chunk)).
+
+    Raises ``ValueError`` where no block fits the card's shared memory."""
+    esz = torch.finfo(dtype).bits // 8
+    if expand:
+        if esz == 2 and -(-cmid // (2 * _CC)) * 2 * _CC - cmid <= cmid // 8:
+            try:
+                plan = _expand_plan(h, w, cin, cmid, k, esz, 2 * _CC)
+                if plan["n_tiles"] == 1:
+                    return plan
+            except ValueError:
+                pass
+        return _expand_plan(h, w, cin, cmid, k, esz, _CC)
+    cc, vec = min(cmid, _CC), 16 // esz
+    while dw_smem_bytes(cc, w, k, esz) > MAX_SMEM and cc > vec:
+        cc = max(vec, cc // 2 // vec * vec)
+    n_chunks = -(-cmid // cc)
+    bands = min(h, max(1, round(2 * SMS / (b * n_chunks))))
+    rows = max(min(h, 4), -(-h // bands))
+
+    def size(t):
+        return dw_smem_bytes(cc, w, k, esz)
+
+    if size(rows) > MAX_SMEM:
+        rows = 0
+    return _finish_plan(h, cmid, cc, rows, size)
+
+
+def _expand_plan(h: int, w: int, cin: int, cmid: int, k: int, esz: int,
+                 cc: int) -> dict:
+    """The expand plan at channel chunk ``cc`` (64: 256 threads, tiles that
+    fit two blocks an SM unless that leaves fewer than 4 rows; 128: 512
+    threads, one block an SM)."""
+    def size(t):
+        return expand_smem_bytes(t, w, k, cin, esz, cc)
+
+    fits = (lambda t: size(t) <= TWO_BLOCKS) if cc == _CC else \
+        (lambda t: size(t) <= MAX_SMEM)
+    rows = max((t for t in range(1, h + 1) if fits(t)), default=0)
+    if cc == _CC and rows < min(h, 4):
+        rows = max((t for t in range(1, h + 1) if size(t) <= MAX_SMEM),
+                   default=0)
+    return _finish_plan(h, cmid, cc, rows, size)
+
+
+def _finish_plan(h: int, cmid: int, cc: int, rows: int, size) -> dict:
+    if rows == 0:
+        raise ValueError(f"fused MBConv kernel: no block of {h} rows and a "
+                         f"{cc}-channel chunk fits {MAX_SMEM} bytes of "
+                         "shared memory")
+    n_tiles = -(-h // rows)
+    rows = -(-h // n_tiles)
+    return {"cc": cc, "rows": rows, "n_tiles": n_tiles,
+            "n_chunks": -(-cmid // cc), "smem": size(rows),
+            "pool": "direct" if n_tiles == 1 else "partials"}
+
+
 # ------------------------------------------------------------- the kernels
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_dwconv")
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"dw_silu_pool_{sfx}")
-        fn.argtypes, fn.restype = [vp] * 5 + [i32] * 6 + [vp], i32
+        fn.argtypes, fn.restype = [vp] * 7 + [i32] * 9 + [i64, vp], i32
         fn = getattr(lib, f"expand_dw_silu_pool_{sfx}")
-        fn.argtypes, fn.restype = [vp] * 7 + [i32] * 7 + [vp], i32
+        fn.argtypes, fn.restype = [vp] * 9 + [i32] * 10 + [i64, vp], i32
     lib.fused_dwconv_error_string.argtypes = [i32]
     lib.fused_dwconv_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _entry(name: str, dtype: torch.dtype):
+    """The C entry ``<name>_<dtype>``, looked up once."""
+    return getattr(_lib(), f"{name}_{_SUFFIX[dtype]}")
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """n int32 arrival counters for the pool's partials on (device, stream):
+    zeroed once when allocated (or grown); every launch leaves them zero."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def _check(x: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor, c: int):
@@ -106,20 +244,29 @@ def _no_backward(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _kernel_weights(x: torch.Tensor, wd: torch.Tensor, biases):
-    """The kernel's operand layouts: depthwise [C, K*K] in x.dtype (the
-    OIHW parameter itself when ``wd`` is its ``permute(2, 3, 1, 0)`` view, as
-    in the model: no copy) and the biases as they are when both are f32 or
-    both bf16 (else f32), with the flag that tells the kernel which."""
+    """The kernel's operand layouts: depthwise [C, K*K] in x.dtype and the
+    biases as they are when both are f32 or both bf16 (else f32), with the
+    flag that tells the kernel which.  Where ``wd`` is the ``permute(2, 3,
+    1, 0)`` view of an OIHW parameter in x.dtype and the biases contiguous,
+    as in the model, the tensors are passed as they are: their memory has
+    the kernel's layout, and no tensor op is dispatched (the serving forward
+    at bs 16 is host-bound)."""
     k, c = wd.shape[0], wd.shape[-1]
-    wk = wd.permute(3, 2, 0, 1).reshape(c, k * k).to(x.dtype).contiguous()
+    if wd.dtype == x.dtype and wd.stride() == (k, 1, k * k, k * k):
+        wk = wd
+    else:
+        wk = wd.permute(3, 2, 0, 1).reshape(c, k * k).to(x.dtype).contiguous()
     dt = biases[0].dtype
     if dt not in _SUFFIX or any(b.dtype != dt for b in biases):
         dt = torch.float32
-    return wk, [b.to(dt).contiguous() for b in biases], int(dt == torch.bfloat16)
+    return wk, [b if b.dtype == dt and b.stride() == (1,) else
+                b.to(dt).contiguous() for b in biases], int(dt == torch.bfloat16)
 
 
-def _launch(name: str, x: torch.Tensor, tensors, ints, c: int):
-    """Allocate y and the zeroed pool, launch ``<name>_<dtype>`` on the
+def _launch(name: str, x: torch.Tensor, tensors, ints, cin: int, c: int,
+            k: int):
+    """Allocate y and the pool (``torch.empty``: the kernel writes every
+    entry), take :func:`mbconv_plan`, launch ``<name>_<dtype>`` on the
     current stream, raise on a refused launch."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA "
@@ -138,16 +285,26 @@ def _launch(name: str, x: torch.Tensor, tensors, ints, c: int):
         if t.device != x.device:
             raise ValueError(f"{name}: all tensors must be on {x.device}")
     bsz, h, w = x.shape[:3]
+    plan = mbconv_plan(bsz, h, w, cin, c, k, x.dtype,
+                       name == "expand_dw_silu_pool")
     y = torch.empty((bsz, h, w, c), dtype=x.dtype, device=x.device)
-    pool = torch.zeros((bsz, c), dtype=torch.float32, device=x.device)
-    lib = _lib()
+    pool = torch.empty((bsz, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"{name}_{_SUFFIX[x.dtype]}")(
-            *(t.data_ptr() for t in (x, *tensors, y, pool)), *ints, stream)
+        partial = counters = None
+        if plan["n_tiles"] > 1:
+            partial = torch.empty((plan["n_tiles"], bsz, c),
+                                  dtype=torch.float32, device=x.device)
+            counters = _counters(x.device, stream, bsz * plan["n_chunks"])
+        rc = _entry(name, x.dtype)(
+            *(t.data_ptr() for t in (x, *tensors, y, pool)),
+            *(None if t is None else t.data_ptr()
+              for t in (partial, counters)),
+            *ints, plan["cc"], plan["rows"], plan["n_tiles"], plan["smem"],
+            stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.fused_dwconv_error_string(rc).decode()}")
+                           f"{_lib().fused_dwconv_error_string(rc).decode()}")
     return y, pool
 
 
@@ -166,7 +323,7 @@ def dw_silu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     bsz, h, ww = x.shape[:3]
     wk, (bk,), bias_bf16 = _kernel_weights(x, w, [b])
     out = _launch("dw_silu_pool", x, (wk, bk),
-                  (bsz, h, ww, c, w.shape[0], bias_bf16), c)
+                  (bsz, h, ww, c, w.shape[0], bias_bf16), c, c, w.shape[0])
     dw_silu_pool.launches += 1
     return out
 
@@ -186,7 +343,7 @@ def expand_dw_silu_pool(x: torch.Tensor, we: torch.Tensor, be: torch.Tensor,
     if tuple(we.shape[:-1]) not in ((cin,), (1, 1, cin)):
         raise ValueError(f"expand weight must be [{cin}, Cmid] or "
                          f"[1, 1, {cin}, Cmid], got {tuple(we.shape)}")
-    we2 = we.reshape(cin, -1)
+    we2 = we if we.dim() == 2 else we.reshape(cin, -1)
     cmid = we2.shape[1]
     _check(x, wd, bd, cmid)
     if tuple(be.shape) != (cmid,):
@@ -197,9 +354,11 @@ def expand_dw_silu_pool(x: torch.Tensor, we: torch.Tensor, be: torch.Tensor,
     bsz, h, ww = x.shape[:3]
     wk, (bek, bdk), bias_bf16 = _kernel_weights(x, wd, [be, bd])
     # [Cmid, Cin]: the conv parameter itself when ``we`` is its transpose
-    wek = we2.t().to(x.dtype).contiguous()
+    wek = (we2 if we2.dtype == x.dtype and we2.stride() == (1, cin) else
+           we2.t().to(x.dtype).contiguous())
     out = _launch("expand_dw_silu_pool", x, (wek, bek, wk, bdk),
-                  (bsz, h, ww, cin, cmid, wd.shape[0], bias_bf16), cmid)
+                  (bsz, h, ww, cin, cmid, wd.shape[0], bias_bf16), cin, cmid,
+                  wd.shape[0])
     expand_dw_silu_pool.launches += 1
     return out
 

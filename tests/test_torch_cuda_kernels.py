@@ -105,6 +105,102 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     assert fd.dw_silu_pool.launches == before  # CPU: the plain version
 
 
+
+def _dw_args(g, b, h, w, c, k, dtype, device):
+    x = torch.randn(b, h, w, c, generator=g, device=device).to(dtype)
+    wd = (torch.randn(k, k, 1, c, generator=g, device=device) / k).to(dtype)
+    bd = torch.randn(c, generator=g, device=device) * 0.1
+    return x, wd, bd
+
+
+def _expand_args(g, b, h, w, cin, cmid, k, dtype, device):
+    x = torch.randn(b, h, w, cin, generator=g, device=device).to(dtype)
+    we = (torch.randn(cin, cmid, generator=g, device=device)
+          / cin ** 0.5).to(dtype)
+    be = torch.randn(cmid, generator=g, device=device) * 0.5
+    wd = (torch.randn(k, k, 1, cmid, generator=g, device=device) / k).to(dtype)
+    bd = torch.randn(cmid, generator=g, device=device) * 0.1
+    return x, we, be, wd, bd
+
+
+# ragged against the launch plan: C 24 and 40 against the channel pairs and
+# C 72 against the 64-channel chunk; W not a multiple of the 6-column run; H
+# below one band or tile; H over several bands or tiles with a short last
+# one (41 rows in bands of 4; 50 rows of width 95 in tiles of 4 in bf16);
+# batch 1; Cmid 1392 (a 48-channel last chunk); both K.  A rerun gives the
+# same bits of y and pool (no float atomics).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geo", [
+    ("dw", 1, 5, 7, 24, 24, 3), ("dw", 3, 41, 29, 40, 40, 5),
+    ("dw", 2, 190, 190, 40, 40, 3), ("dw", 1, 9, 13, 72, 72, 3),
+    ("expand", 1, 12, 12, 232, 1392, 5), ("expand", 1, 50, 95, 32, 192, 3),
+    ("expand", 3, 5, 11, 40, 240, 5), ("expand", 2, 24, 24, 136, 816, 3)])
+def test_mbconv_kernels_ragged_plans_and_rerun_bits(cuda, dtype, geo):
+    kind, b, h, w, cin, cmid, k = geo
+    g = torch.Generator(device=cuda).manual_seed(14)
+    if kind == "dw":
+        args = _dw_args(g, b, h, w, cmid, k, dtype, cuda)
+        fn, ref = fd.dw_silu_pool, fd.dw_silu_pool_reference
+    else:
+        args = _expand_args(g, b, h, w, cin, cmid, k, dtype, cuda)
+        fn, ref = fd.expand_dw_silu_pool, fd.expand_dw_silu_pool_reference
+    before = fn.launches
+    y, pool = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    y_ref, pool_ref = ref(*args)
+    _close(y, y_ref, TOL[dtype])
+    _close(pool, pool_ref, POOL_TOL[dtype])
+    y2, pool2 = fn(*args)
+    assert torch.equal(y2, y) and torch.equal(pool2, pool)
+
+
+def test_mbconv_kernels_make_one_launch_and_no_memset(cuda):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    # weights as the model passes them: views of OIHW parameters (no copy)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    bf = torch.bfloat16
+    x, _, bd = _dw_args(g, 2, 41, 29, 40, 3, bf, cuda)
+    wd = torch.randn(40, 1, 3, 3, generator=g, device=cuda).to(bf)
+    calls = [(fd.dw_silu_pool, (x, wd.permute(2, 3, 1, 0), bd))]
+    x, _, be, _, bd = _expand_args(g, 2, 24, 24, 96, 576, 5, bf, cuda)
+    we = torch.randn(576, 96, generator=g, device=cuda).to(bf)
+    wd = torch.randn(576, 1, 5, 5, generator=g, device=cuda).to(bf)
+    calls.append((fd.expand_dw_silu_pool,
+                  (x, we.t(), be, wd.permute(2, 3, 1, 0), bd)))
+    for fn, args in calls:
+        fn(*args)  # the counters' one-time allocation
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1 and "mbconv" in names[0], names
+
+
+@pytest.mark.parametrize("bad", ["smem", "rows", "n_tiles", "cc"])
+def test_mbconv_kernels_refuse_a_plan_that_is_not_theirs(cuda, monkeypatch,
+                                                         bad):
+    """The kernel checks the wrapper's plan: a shared-memory size other than
+    its layout's, tiles that do not cover H once, or another channel chunk
+    are refused."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    calls = [(fd.dw_silu_pool, _dw_args(g, 2, 41, 29, 40, 3, torch.bfloat16,
+                                        cuda)),
+             (fd.expand_dw_silu_pool,
+              _expand_args(g, 2, 24, 24, 96, 576, 5, torch.bfloat16, cuda))]
+    plan = fd.mbconv_plan
+    change = {"smem": 16, "rows": -1, "n_tiles": -1, "cc": -8}[bad]
+    for fn, args in calls:
+        fn(*args)
+        monkeypatch.setattr(fd, "mbconv_plan", lambda *a: {
+            **plan(*a), bad: plan(*a)[bad] + change})
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn(*args)
+        monkeypatch.setattr(fd, "mbconv_plan", plan)
+
 def _affines(cases, h, w, device):
     """(dx, dy, scale, angle°) → inverse affines [B, 6] about the centre."""
     rows = []

@@ -117,3 +117,64 @@ def test_import_needs_no_nvcc_or_triton():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _serving_geometries():
+    """(kind, H, Cin, Cmid, K) of every stride-1 MBConv block of the B3@380
+    serving forward (as ``chip_smoke.serving_geometries``), distinct."""
+    from multimodal_isic_tpu_torch.models.efficientnet import block_args
+    h, out = -(-380 // 2), []
+    for expand, k, stride, cin, _ in block_args("efficientnet-b3"):
+        if stride == 1:
+            out.append(("dw" if expand == 1 else "expand", h, cin,
+                        cin * expand, k))
+        else:
+            h = -(-h // stride)
+    return sorted(set(out))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bsz", [1, 16, 128])
+def test_mbconv_plan_fits_and_covers(bsz, dtype):
+    """The card's launch plan at every serving geometry: a block's shared
+    memory within the H100's 232,448 bytes (and the kernel's layout), row
+    tiles and channel chunks that cover H and Cmid exactly once, and a pool
+    path that matches the tile count."""
+    esz = torch.finfo(dtype).bits // 8
+    geos = _serving_geometries()
+    assert len(geos) == 10
+    for kind, h, cin, cmid, k in geos:
+        plan = tfd.mbconv_plan(bsz, h, h, cin, cmid, k, dtype,
+                               kind == "expand")
+        cc, rows, n_tiles = plan["cc"], plan["rows"], plan["n_tiles"]
+        assert plan["smem"] <= tfd.MAX_SMEM == 232448
+        if kind == "expand":
+            assert cc in (64, 128)
+            assert plan["smem"] == tfd.expand_smem_bytes(rows, h, k, cin,
+                                                         esz, cc)
+            if cc == 64 and plan["smem"] > tfd.TWO_BLOCKS:
+                # one block an SM only where two would leave < 4 rows
+                assert tfd.expand_smem_bytes(min(h, 4), h, k, cin, esz,
+                                             cc) > tfd.TWO_BLOCKS
+        else:
+            assert cc <= 64 and cc % (16 // esz) == 0
+            assert plan["smem"] == tfd.dw_smem_bytes(cc, h, k, esz)
+        assert (n_tiles - 1) * rows < h <= n_tiles * rows
+        assert plan["n_chunks"] == -(-cmid // cc)
+        assert (plan["n_chunks"] - 1) * cc < cmid <= plan["n_chunks"] * cc
+        assert plan["pool"] == ("direct" if n_tiles == 1 else "partials")
+
+
+def test_mbconv_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        tfd.mbconv_plan(1, 16, 4000, 32, 192, 5, torch.float32)
+
+
+def test_wrapper_allocates_no_zeroed_pool():
+    """The kernels write every pool entry (in the same order on every run),
+    so the wrapper takes the pool and the partials from ``torch.empty``:
+    there is no memset launch a call."""
+    import inspect
+    src = inspect.getsource(tfd._launch)
+    assert "torch.zeros" not in src and "zero_" not in src
+    assert "pool = torch.empty((bsz, c), dtype=torch.float32" in src
