@@ -342,16 +342,24 @@ def _kernel_inputs(kind, bsz, h, cin, cmid, k, dtype, device, g):
     return (x, we.t(), be, wd.permute(2, 3, 1, 0), bd)
 
 
-def device_launches(fn):
+def device_launches(fn, traces=5):
     """Names of the device activities (kernels, memsets, copies) of one call
-    of ``fn``, traced by torch.profiler."""
+    of ``fn``, traced by torch.profiler.  A trace that recorded no device
+    activity at all lost the call's (torch.profiler sometimes records
+    nothing for a traced call), so the call is traced again, up to
+    ``traces`` times; any trace that recorded something is the answer."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(traces):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def check_kernels(device, bsz=BATCH):
@@ -1258,6 +1266,7 @@ def check_mae_kernels(device):
     for name, dtype, geo in mae_geometries():
         args = _mae_inputs(name, geo, dtype, device, g)
         fn, ref = fns[name]
+        before = fn.launches
         got = fn(*args)
         want = ref(*args)
         torch.cuda.synchronize()
@@ -1265,7 +1274,15 @@ def check_mae_kernels(device):
         err, ok = _allclose_err(got, want, *tol[name][dtype])
         worst[name] = max(worst[name], err)
         label = f"{name} {geo} {str(dtype)[6:]}"
-        print(f"check {label}: max_abs_err {err:.3e} ({'ok' if ok else 'FAIL'})")
+        how = ""
+        if name != "flash_attention":  # the conv-stage kernels' plans
+            same = torch.equal(fn(*args), got)
+            calls = fn.launches - before
+            ok = ok and same and calls == 2
+            how = (f"; a rerun gives {'the same' if same else 'OTHER'} bits; "
+                   f"{calls} launches in 2 calls")
+        print(f"check {label}: max_abs_err {err:.3e}{how} "
+              f"({'ok' if ok else 'FAIL'})")
         if not ok:
             failures.append(label)
         del args, got, want
@@ -1505,6 +1522,27 @@ def _time_interleaved(kernel, plain, library=None, kernel_iters=10,
     return {k: min(r["median"] for r in v) * 1e3 for k, v in runs.items()}
 
 
+def _graph_ms(fn, calls=10):
+    """Device ms a call of ``fn``: ``calls`` calls in one CUDA graph
+    (:func:`_graphed`), the median of 3 replays timed with CUDA events."""
+    from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
+    t = timeit_closed(_graphed(fn, calls), iters=1, repeats=3)
+    return t["median"] * 1e3 / calls
+
+
+def _two_products(name, dtype, geo, device, g):
+    """The conv-stage kernel's two products alone, ``torch.matmul`` in the
+    kernel's dtype on random operands of the call's shapes (fused LN-MLP:
+    y·w1 [M, C]·[C, 4C] and a·w2; fused front: the two C×C 1×1s): a
+    yardstick of how far the fused kernel is from the unfused products it
+    must beat, timed here and used nowhere in the port."""
+    b, hw, c = geo[:3]
+    m, f = b * hw * hw, (4 * c if name == "fused_ln_mlp" else c)
+    rn = lambda *s: torch.randn(*s, generator=g, device=device).to(dtype)
+    y, w1, a, w2 = rn(m, c), rn(c, f), rn(m, f), rn(f, c)
+    return lambda: (torch.matmul(y, w1), torch.matmul(a, w2))
+
+
 def _sdpa_f32(args):
     """``F.scaled_dot_product_attention`` on float32 copies of q, k, v: the
     one PyTorch call that computes attention's function (a yardstick only;
@@ -1517,7 +1555,10 @@ def _sdpa_f32(args):
 def time_mae(device, crops, masks, val_imgs, val_draws):
     """Each ConvMAE kernel against its plain version (and attention against
     ``F.scaled_dot_product_attention``) at the bs 128 bf16 extraction
-    shapes, and attention at the validation forward's float32 shapes;
+    shapes, and all three at the validation forward's float32 shapes, with
+    each call's device time from CUDA-graph replays beside (the LN-MLP and
+    the front also beside their two products alone as ``torch.matmul``, a
+    yardstick);
     encoder img/s at bs 128 bf16 on the kernel, plain and flash + front
     paths; the validation forward at bs 16 float32; peak memory and
     profiles.  → per kernel (ms, plain ms, bound ms, bytes ms, operations
@@ -1538,8 +1579,14 @@ def time_mae(device, crops, masks, val_imgs, val_draws):
     val_fw = [((VAL_BATCH, 12, 49, 64), 11), ((VAL_BATCH, 16, 196, 32), 8)]
     jobs = [(name, bf, geos, "an encoder forward at bs 128 bf16")
             for name, geos in per_fw.items()]
-    jobs.append(("flash_attention", f32, val_fw,
-                 f"a validation forward at bs {VAL_BATCH} f32"))
+    val_path = f"a validation forward at bs {VAL_BATCH} f32"
+    jobs.append(("flash_attention", f32, val_fw, val_path))
+    # the conv stages of the validation forward (bs 16 f32, with keep)
+    jobs.append(("fused_ln_mlp", f32, [((VAL_BATCH, 56, 256), 2),
+                                       ((VAL_BATCH, 28, 384), 2)], val_path))
+    jobs.append(("fused_front", f32, [((VAL_BATCH, 56, 256, True), 2),
+                                      ((VAL_BATCH, 28, 384, True), 2)],
+                 val_path))
     out = {}
     for name, dtype, geos, path in jobs:
         kern, ref = fns[name]
@@ -1551,6 +1598,21 @@ def time_mae(device, crops, masks, val_imgs, val_draws):
                     _sdpa_f32(args) if name == "flash_attention" else None)
             med = _time_interleaved(*fns3)
             how = ""
+            if name != "flash_attention":  # device time and the yardstick
+                b_bytes, b_ops = mae_bound_ms(name, dtype, geo)
+                k_dev = _graph_ms(fns3[0])
+                prod = _two_products(name, dtype, geo, device, g)
+                p_ms = timeit_closed(prod, iters=5, repeats=3)["median"] * 1e3
+                p_dev = _graph_ms(prod)
+                how = (f"; device time (CUDA-graph replays): kernel "
+                       f"{k_dev:.4f} ms ({max(b_bytes, b_ops) / k_dev:.1%} "
+                       f"of the bound); yardstick, the two products alone as "
+                       f"torch.matmul in {str(dtype)[6:]}: {p_ms:.4f} ms "
+                       f"eager, {p_dev:.4f} ms device")
+                for k, v in (("kernel", k_dev), ("products", p_dev),
+                             ("products eager", p_ms)):
+                    dev[k] = dev.get(k, 0.0) + calls * v
+                del prod
             if name == "flash_attention":  # beside it, the device's time
                 gr = _time_interleaved(*fns3, graph=True)
                 how = (f"; device time (CUDA-graph replays): kernel "
@@ -1575,10 +1637,17 @@ def time_mae(device, crops, masks, val_imgs, val_draws):
                 tot[5] = (tot[5] or 0.0) + calls * med["library"]
             del args
         lib = f", SDPA {tot[5]:.4f} ms" if tot[5] is not None else ""
-        how = (f"; device time (CUDA-graph replays): kernel "
-               f"{dev['kernel']:.4f}, plain {dev['plain']:.4f}, SDPA "
-               f"{dev['library']:.4f} ms: {tot[2] / dev['kernel']:.1%} of "
-               f"the bound" if dev else "")
+        if name == "flash_attention":
+            how = (f"; device time (CUDA-graph replays): kernel "
+                   f"{dev['kernel']:.4f}, plain {dev['plain']:.4f}, SDPA "
+                   f"{dev['library']:.4f} ms: {tot[2] / dev['kernel']:.1%} of "
+                   f"the bound")
+        else:
+            how = (f"; device time (CUDA-graph replays): kernel "
+                   f"{dev['kernel']:.4f} ms: {tot[2] / dev['kernel']:.1%} of "
+                   f"the bound; the two products alone (torch.matmul, "
+                   f"yardstick) {dev['products eager']:.4f} ms eager, "
+                   f"{dev['products']:.4f} ms device")
         print(f"time {name} per {path} (eager calls): kernel {tot[0]:.4f} ms, "
               f"plain {tot[1]:.4f} ms{lib}; bound {tot[2]:.4f} ms: "
               f"{tot[2] / tot[0]:.1%} of it{how}")

@@ -1,7 +1,8 @@
-// Device helpers shared by ConvMAE's kernels (fused_ln_mlp.cu, fused_front.cu,
+// Device helpers shared by ConvMAE's kernels (fused_ln_mlp.cu, fused_front.cu
+// through chained_gemm.cuh, fused_ln_mlp_bwd.cu, fused_mlp.cu,
 // flash_attention.cu): conversions between the storage type T (float or
-// __nv_bfloat16) and float32, the bf16 tensor-core product, the exact-erf GELU
-// and the flax LayerNorm row.
+// __nv_bfloat16) and float32, the bf16 tensor-core product, the exact-erf
+// GELU and the warp sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,40 +48,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// flax nn.LayerNorm of one row of C values of T, held VPL = C/32 per lane
-// (lane + 32 i): float32 fast-variance statistics E[x^2] - mean^2 clipped at
-// 0, y = (x - mean) * (rsqrt(var + eps) * scale) + shift, rounded to T and
-// written to dst[lane + 32 i] (shared memory).
-template <typename T, int C>
-__device__ __forceinline__ void ln_row(const T* __restrict__ src, const float* __restrict__ ls,
-                                       const float* __restrict__ lb, float eps, T* dst,
-                                       int lane) {
-  constexpr int VPL = C / 32;
-  float v[VPL];
-  float s = 0.0f, ss = 0.0f;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    v[i] = to_f(src[lane + 32 * i]);
-    s += v[i];
-    ss += v[i] * v[i];
-  }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mean = s / float(C);
-  const float var = fmaxf(ss / float(C) - mean * mean, 0.0f);
-  const float r = rsqrtf(var + eps);
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = lane + 32 * i;
-    dst[c] = from_f<T>((v[i] - mean) * (r * ls[c]) + lb[c]);
-  }
-}
-
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
 // D += A(16x16 bf16, row) * B(16x8 bf16, col), f32 accumulators.  Fragments:
@@ -96,11 +65,11 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // acc[nt] += A[16 rows x K] . B[NT*8 rows x K]^T for one warp: A in shared
-// memory (row stride lda, 16 rows from a), B row-major with K contiguous
-// (row stride ldb; shared memory, or global memory when GLOBAL_B).  K is a
-// multiple of 16, known at compile time, so the loop unrolls and the loads of
-// later k-steps can be issued ahead of the products.
-template <int NT, int K, bool GLOBAL_B>
+// memory (row stride lda, 16 rows from a), B in shared memory row-major with
+// K contiguous (row stride ldb).  K is a multiple of 16, known at compile
+// time, so the loop unrolls and the loads of later k-steps can be issued
+// ahead of the products.
+template <int NT, int K>
 __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const __nv_bfloat16* a, int lda,
                                          const __nv_bfloat16* b, int ldb, int lane) {
   const int gid = lane >> 2, tig = lane & 3;
@@ -112,11 +81,7 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const __nv_bfloat1
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const __nv_bfloat16* bp = b + (nt * 8 + gid) * ldb + k0 + tig * 2;
-      if constexpr (GLOBAL_B) {
-        mma_16816(acc[nt], af, ldg32(bp), ldg32(bp + 8));
-      } else {
-        mma_16816(acc[nt], af, ld32(bp), ld32(bp + 8));
-      }
+      mma_16816(acc[nt], af, ld32(bp), ld32(bp + 8));
     }
   }
 }

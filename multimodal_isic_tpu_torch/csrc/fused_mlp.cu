@@ -164,7 +164,7 @@ fused_mlp_kernel(const T* __restrict__ x,      // [M, C]
 
     // ---- out += a_chunk . w2_chunk^T
     if constexpr (BF16) {
-      warp_mma<NT, FC, false>(acc, as + mt * 16 * S::LDA, S::LDA, w2s + nh * (C2 / 2) * S::LDW2,
+      warp_mma<NT, FC>(acc, as + mt * 16 * S::LDA, S::LDA, w2s + nh * (C2 / 2) * S::LDW2,
                               S::LDW2, lane);
     } else {
       const float* af = reinterpret_cast<const float*>(as);

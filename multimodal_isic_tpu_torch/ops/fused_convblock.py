@@ -17,7 +17,10 @@ Vectors (LayerNorm scale and shift, biases) are read as float32 values: the
 model hands them over rounded to its dtype, as the JAX model does.
 
 - On a CUDA tensor :func:`fused_front` launches the hand-written kernel of
-  ``csrc/fused_front.cu`` (built with nvcc at first use), or raises.
+  ``csrc/fused_front.cu`` (built with nvcc at first use), or raises.  The
+  wrapper owns the launch plan (:func:`front_plan`: column bands, rows a
+  block, K chunk, ring stages, shared-memory bytes); the library refuses any
+  plan it was not built for or that does not cover the image once.
 - On a CPU tensor it runs :func:`fused_front_reference`.
 
 The backward is the JAX one (:189-196): a recompute through the plain
@@ -43,6 +46,17 @@ from .fused_mlp import gelu_f32, ln_rows
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 CHANNELS = (256, 384)  # C the kernel is built for: ConvViT-Base's conv stages
 _MAX_BATCH = 65535          # gridDim.y
+# The kernel's instantiations, (output columns a band at most, K chunk,
+# ring stages) for each (dtype, C): the widest band whose ring of 5 h1 rows,
+# y/g tile and weight ring fit one block's shared memory (bf16: the whole
+# 56-wide stage-1 and 28-wide stage-2 rows).  The library takes these and
+# no other (``csrc/fused_front.cu``).
+_FRONT_TILES = {(torch.bfloat16, 256): (56, 32, 2),
+                (torch.bfloat16, 384): (28, 32, 2),
+                (torch.float32, 256): (14, 32, 3),
+                (torch.float32, 384): (14, 16, 2)}
+_NUM_SMS = 132  # the H100's SMs: row bands fill them once
+_MIN_ROWS = 4  # output rows a block at least: its 4 halo rows stay <= 2x
 # Kernel vs plain version, (atol, rtol): the fused LN-MLP's table, for the
 # same kinds of rounding flips.
 TOL = fused_mlp.TOL
@@ -67,13 +81,50 @@ def fused_front_reference(x, ls, lb, w1, b1, wd, bd, w2, b2,
     return x + out
 
 
+def front_smem_bytes(c: int, band: int, kc: int, stages: int,
+                     dtype: torch.dtype) -> int:
+    """Shared memory of one block of ``csrc/fused_front.cu`` (its
+    ``Front``): the ring of 5 h1 rows [5, band + 4, C], the y/g tile [mp,
+    C + pad] (mp: band + 4 rounded up to 16 in bf16, to 4 in float32), the
+    keep factors [mp] in float32 and ``stages`` weight tiles [C, kc + pad],
+    each 16-byte aligned."""
+    esz, pad = torch.finfo(dtype).bits // 8, fused_mlp._PAD[dtype]
+    step = 16 if dtype == torch.bfloat16 else 4
+    mp = -(-(band + 4) // step) * step
+    a16 = fused_mlp._a16
+    return (a16(5 * (band + 4) * c * esz) + a16(mp * (c + pad) * esz)
+            + a16(mp * 4) + stages * a16(c * (kc + pad) * esz))
+
+
+def front_plan(b: int, h: int, w: int, c: int, dtype: torch.dtype) -> dict:
+    """The kernel's launch plan for x [B, H, W, C]: ``band_w`` output
+    columns a band in ``n_bx`` bands (W evened out over the fewest bands of
+    at most the tile's width), ``rows`` output rows a block in ``n_by`` row
+    bands (enough blocks to fill the card's SMs once, one block an SM, but at
+    least ``_MIN_ROWS`` rows a block), the K chunk ``kc``, ring ``stages``,
+    ``blocks`` and ``smem`` (bytes; the kernel refuses any other size)."""
+    if (dtype, c) not in _FRONT_TILES or min(b, h, w) <= 0:
+        raise ValueError(f"fused_front: no kernel plan for [{b}, {h}, {w}, "
+                         f"{c}] {dtype}")
+    bw, kc, stages = _FRONT_TILES[(dtype, c)]
+    n_bx = -(-w // bw)
+    band_w = -(-w // n_bx)
+    want_by = max(1, _NUM_SMS // (b * n_bx))
+    rows = max(min(_MIN_ROWS, h), -(-h // want_by))
+    n_by = -(-h // rows)
+    return {"band_w": band_w, "n_bx": n_bx, "rows": rows, "n_by": n_by,
+            "kc": kc, "stages": stages, "blocks": b * n_bx * n_by,
+            "smem": front_smem_bytes(c, bw, kc, stages, dtype)}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_front")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"fused_front_{sfx}")
-        fn.argtypes = [vp] * 11 + [i32] * 4 + [ctypes.c_float, vp]
+        fn.argtypes = ([vp] * 11 + [i32] * 4 + [ctypes.c_float] + [i32] * 6
+                       + [ctypes.c_longlong, vp])
         fn.restype = i32
     lib.fused_front_error_string.argtypes = [i32]
     lib.fused_front_error_string.restype = ctypes.c_char_p
@@ -111,7 +162,7 @@ def _check(x, ls, lb, w1, b1, wd, bd, w2, b2, keep):
 def _kernel(x, ls, lb, w1, b1, wd, bd, w2, b2, keep, eps):
     bsz, h, w, c = x.shape
     dt = x.dtype
-    x = x.contiguous()
+    x = fused_mlp._aligned(x)
     # [C_out, C_in]: the conv parameters themselves when the model passes
     # their transposed views in the compute dtype
     w1k = w1.t().to(dt).contiguous()
@@ -126,6 +177,7 @@ def _kernel(x, ls, lb, w1, b1, wd, bd, w2, b2, keep, eps):
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    p = front_plan(bsz, h, w, c, dt)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -134,7 +186,8 @@ def _kernel(x, ls, lb, w1, b1, wd, bd, w2, b2, keep, eps):
             w1k.data_ptr(), vecs[2].data_ptr(), taps.data_ptr(),
             vecs[3].data_ptr(), w2k.data_ptr(), vecs[4].data_ptr(),
             keepk.data_ptr() if keepk is not None else None, out.data_ptr(),
-            bsz, h, w, c, eps, stream)
+            bsz, h, w, c, eps, p["band_w"], p["n_bx"], p["rows"], p["n_by"],
+            p["kc"], p["stages"], p["smem"], stream)
     if rc != 0:
         raise RuntimeError("fused_front launch failed: "
                            f"{lib.fused_front_error_string(rc).decode()}")

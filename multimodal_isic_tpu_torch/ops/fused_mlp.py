@@ -19,7 +19,10 @@ values (the model hands over ``b1``/``b2`` already rounded to its dtype, as
 the JAX model does).
 
 - On a CUDA tensor :func:`fused_ln_mlp` launches the hand-written kernel of
-  ``csrc/fused_ln_mlp.cu`` (built with nvcc at first use), or raises.
+  ``csrc/fused_ln_mlp.cu`` (built with nvcc at first use), or raises.  The
+  wrapper owns the launch plan (:func:`ln_mlp_plan`: rows a block, F chunk,
+  ring stages, shared-memory bytes); the library refuses any plan it was
+  not built for.
 - On a CPU tensor it runs :func:`fused_ln_mlp_reference`.
 
 The bare MLP is the counterpart of ``fused_mlp.py::fused_mlp`` (:116, the
@@ -153,13 +156,63 @@ def fused_ln_mlp_backward_reference(x, g, ls, lb, w1, b1, w2, b2,
             db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype))
 
 
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+# The forward kernel's instantiations, (rows a block, F chunk, ring stages)
+# for each (dtype, C), the plan's first choice first: bf16 keeps a [rows, C]
+# f32 accumulator in registers (C/4 a thread over 4·rows threads), float32
+# two stages of [FC, C] and [C, FC] weight chunks in shared memory; bf16 at
+# C 256 takes 64-row blocks of 32-wide chunks where 64 does not divide F.
+# The library takes these and no other (``csrc/fused_ln_mlp.cu``).
+_LN_MLP_TILES = {(torch.bfloat16, 256): ((128, 64, 2), (64, 32, 3)),
+                 (torch.bfloat16, 384): ((96, 32, 2),),
+                 (torch.float32, 256): ((64, 32, 2),),
+                 (torch.float32, 384): ((64, 16, 2),)}
+_PAD = {torch.float32: 4, torch.bfloat16: 8}  # elements a shared row
+
+
+def _a16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def ln_mlp_smem_bytes(c: int, bm: int, fc: int, stages: int,
+                      dtype: torch.dtype) -> int:
+    """Shared memory of one forward block (``csrc/fused_ln_mlp.cu``'s
+    ``LnMlp``): y [bm, C + pad], ``stages`` × (w1 chunk [fc, C + pad], w2
+    chunk [C, fc + pad]) and the a tile [bm, fc + pad], each 16-byte
+    aligned."""
+    esz, pad = torch.finfo(dtype).bits // 8, _PAD[dtype]
+    stage = _a16(fc * (c + pad) * esz) + _a16(c * (fc + pad) * esz)
+    return (_a16(bm * (c + pad) * esz) + stages * stage
+            + _a16(bm * (fc + pad) * esz))
+
+
+def ln_mlp_plan(m: int, c: int, f: int, dtype: torch.dtype) -> dict:
+    """The forward kernel's launch plan for x [M, C], F: ``bm`` rows a
+    block, F chunk ``fc``, ring ``stages``, ``blocks`` (the last one
+    ragged) and ``smem`` (bytes; the kernel refuses any other size): the
+    first tile of :data:`_LN_MLP_TILES` whose chunk divides F.
+    (Measured on the card, the largest row blocks win at every slice
+    geometry, even where they leave most of a last wave empty.)"""
+    if (dtype, c) not in _LN_MLP_TILES or m <= 0 or f <= 0:
+        raise ValueError(f"fused_ln_mlp: no kernel plan for M={m}, C={c}, "
+                         f"F={f}, {dtype}")
+    fits = [t for t in _LN_MLP_TILES[(dtype, c)] if f % t[1] == 0]
+    if not fits:
+        raise ValueError(f"fused_ln_mlp: F={f} is not a multiple of the "
+                         f"kernel's chunks")
+    bm, fc, stages = fits[0]
+    return {"bm": bm, "fc": fc, "stages": stages, "blocks": -(-m // bm),
+            "smem": ln_mlp_smem_bytes(c, bm, fc, stages, dtype)}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_ln_mlp")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"fused_ln_mlp_{sfx}")
-        fn.argtypes = [vp] * 8 + [i32] * 3 + [ctypes.c_float, vp]
+        fn.argtypes = ([vp] * 8 + [i32] * 3 + [ctypes.c_float] + [i32] * 3
+                       + [ctypes.c_longlong, vp])
         fn.restype = i32
     lib.fused_ln_mlp_error_string.argtypes = [i32]
     lib.fused_ln_mlp_error_string.restype = ctypes.c_char_p
@@ -275,13 +328,15 @@ def _forward_kernel(x, ls, lb, w1, b1, w2, b2, eps):
     out = torch.empty_like(x)
     if m == 0:
         return out
+    plan = ln_mlp_plan(m, c, f, x.dtype)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, f"fused_ln_mlp_{_SUFFIX[x.dtype]}")(
             x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
             w1k.data_ptr(), vecs[2].data_ptr(), w2k.data_ptr(),
-            vecs[3].data_ptr(), out.data_ptr(), m, c, f, eps, stream)
+            vecs[3].data_ptr(), out.data_ptr(), m, c, f, eps, plan["bm"],
+            plan["fc"], plan["stages"], plan["smem"], stream)
     if rc != 0:
         raise RuntimeError("fused_ln_mlp launch failed: "
                            f"{lib.fused_ln_mlp_error_string(rc).decode()}")
@@ -384,7 +439,6 @@ fused_ln_mlp_backward.launches = 0
 
 # ------------------------------------------------------------- the bare MLP
 
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 # C2 the kernel is built for: the [rows, C2] accumulator of a row block
 # stays in registers across F, so registers bound C2; C is bounded by shared
 # memory (:func:`fused_mlp_smem_bytes` <= SMEM_LIMIT).

@@ -257,3 +257,128 @@ def test_attention_bf16_split_stays_inside_tol_at_the_latent_geometry():
         worst = max(worst, float(err.max()))
     assert worst_f32 < 2.0 ** -14
     assert worst <= 2.0 ** -6  # one bf16 ulp of |out| < 2
+
+
+# ------------------------- the conv-stage kernels' launch plans (host side)
+
+BF, F32 = torch.bfloat16, torch.float32
+# (M, C) of the slice's LN-MLP calls (latents bs 128 bf16, validation and
+# training bs 16 f32, training bs 64 bf16) and M ragged against every row
+# block of the plans (64, 96, 128)
+LN_MLP_M = (128 * 56 * 56, 128 * 28 * 28, 16 * 56 * 56, 16 * 28 * 28,
+            64 * 56 * 56, 64 * 28 * 28, 1, 5, 31, 33, 65, 97, 129, 300,
+            777, 1000, 12545, 50177)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("c", tmlp.CHANNELS)
+def test_ln_mlp_plan_covers_every_row_once(dtype, c):
+    """Every row lies in exactly one row block (the last one ragged), the F
+    chunk divides F, the plan is one the library is built for and its
+    shared memory fits one block."""
+    built = tmlp._LN_MLP_TILES[(dtype, c)]
+    for m in LN_MLP_M:
+        for f in (4 * c, 96, 512):
+            p = tmlp.ln_mlp_plan(m, c, f, dtype)
+            assert (p["bm"], p["fc"], p["stages"]) in built
+            assert p["blocks"] * p["bm"] >= m > (p["blocks"] - 1) * p["bm"]
+            assert f % p["fc"] == 0
+            assert p["smem"] == tmlp.ln_mlp_smem_bytes(
+                c, p["bm"], p["fc"], p["stages"], dtype) <= tmlp.SMEM_LIMIT
+
+
+def test_ln_mlp_plan_at_the_slice_geometries():
+    """bf16: 128-row blocks and 64-wide chunks at C 256, 96 rows at C 384
+    (the f32 accumulator of a 32-row x C/4 warp tile: C/4 registers a
+    thread); f32: 64 rows; 32-wide chunks where 64 does not divide F."""
+    plan = lambda m, c, dt: tuple(tmlp.ln_mlp_plan(m, c, 4 * c, dt)[k]
+                                  for k in ("bm", "fc", "stages", "blocks"))
+    assert plan(128 * 56 * 56, 256, BF) == (128, 64, 2, 3136)
+    assert plan(128 * 28 * 28, 384, BF) == (96, 32, 2, 1046)
+    assert plan(16 * 56 * 56, 256, F32) == (64, 32, 2, 784)
+    assert plan(16 * 28 * 28, 384, F32) == (64, 16, 2, 196)
+    assert tmlp.ln_mlp_plan(5, 256, 96, BF)["fc"] == 32
+    # the layout: y, two or three stages of (w1 chunk, w2 chunk), the a tile
+    assert tmlp.ln_mlp_smem_bytes(256, 128, 64, 2, BF) == (
+        128 * 264 * 2 + 2 * (64 * 264 * 2 + 256 * 72 * 2) + 128 * 72 * 2)
+    assert tmlp.ln_mlp_smem_bytes(384, 64, 16, 2, F32) == (
+        64 * 388 * 4 + 2 * (16 * 388 * 4 + 384 * 20 * 4) + 64 * 20 * 4)
+    for (dtype, c), tiles in tmlp._LN_MLP_TILES.items():
+        for bm, fc, stages in tiles:
+            assert tmlp.ln_mlp_smem_bytes(c, bm, fc, stages, dtype) \
+                <= tmlp.SMEM_LIMIT
+
+
+def test_ln_mlp_shape_checks_refuse_what_the_kernel_cannot_take():
+    tmlp.check_ln_mlp_kernel_shape(256, 1024)
+    tmlp.check_ln_mlp_kernel_shape(384, 96)
+    for c, f in ((192, 768), (512, 2048), (256, 100), (384, 16)):
+        with pytest.raises(ValueError, match="the kernel takes C in"):
+            tmlp.check_ln_mlp_kernel_shape(c, f)
+    for m, c, dtype in ((0, 256, BF), (8, 192, BF), (8, 256, torch.float16)):
+        with pytest.raises(ValueError, match="no kernel plan"):
+            tmlp.ln_mlp_plan(m, c, 4 * c, dtype)
+    with pytest.raises(ValueError, match="not a multiple"):
+        tmlp.ln_mlp_plan(64, 384, 1544, F32)
+
+
+def _coverage(p, b, h, w):
+    """How many blocks of plan ``p`` write each output pixel [B, H, W], as
+    the kernel walks them: block (bx, by, image) writes columns
+    [bx·band_w, +band_w) ∩ [0, W) of rows [by·rows, +rows) ∩ [0, H)."""
+    n = np.zeros((b, h, w), np.int64)
+    for img in range(b):
+        for by in range(p["n_by"]):
+            for bx in range(p["n_bx"]):
+                n[img, by * p["rows"]:min(h, (by + 1) * p["rows"]),
+                  bx * p["band_w"]:min(w, (bx + 1) * p["band_w"])] += 1
+    return n
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("c", tfront.CHANNELS)
+def test_front_plan_covers_every_pixel_once(dtype, c):
+    """At the slice's geometries and ragged ones (H, W in 56, 28, 7 and 1
+    and others not multiples of the band, B 1 to 128), every output pixel
+    lies in exactly one block, no band is wider than the kernel's tile and
+    none is empty, the rows a block are at least 4 (or H), and the shared
+    memory fits one block."""
+    width, kc, stages = tfront._FRONT_TILES[(dtype, c)]
+    for b in (1, 2, 16, 128):
+        for h, w in ((56, 56), (28, 28), (7, 7), (1, 1), (57, 61), (9, 13),
+                     (5, 30), (1, 56), (56, 1), (29, 15)):
+            p = tfront.front_plan(b, h, w, c, dtype)
+            assert 1 <= p["band_w"] <= width and 1 <= p["rows"]
+            assert (p["n_bx"] - 1) * p["band_w"] < w <= p["n_bx"] * p["band_w"]
+            assert (p["n_by"] - 1) * p["rows"] < h <= p["n_by"] * p["rows"]
+            assert p["rows"] >= min(4, h)
+            assert p["blocks"] == b * p["n_bx"] * p["n_by"]
+            assert (p["kc"], p["stages"]) == (kc, stages)
+            assert p["smem"] == tfront.front_smem_bytes(
+                c, width, kc, stages, dtype) <= tmlp.SMEM_LIMIT
+            if b <= 2:  # exactly once, counted
+                assert (_coverage(p, b, h, w) == 1).all()
+
+
+def test_front_plan_at_the_slice_geometries():
+    """bf16 bs 128: one block an image (the whole 56- and 28-wide rows, 128
+    blocks on 132 SMs); f32 bs 16: 14-wide bands and row bands enough for
+    128 blocks."""
+    keys = ("band_w", "n_bx", "rows", "n_by", "blocks")
+    plan = lambda *a: tuple(tfront.front_plan(*a)[k] for k in keys)
+    assert plan(128, 56, 56, 256, BF) == (56, 1, 56, 1, 128)
+    assert plan(128, 28, 28, 384, BF) == (28, 1, 28, 1, 128)
+    assert plan(16, 56, 56, 256, F32) == (14, 4, 28, 2, 128)
+    assert plan(16, 28, 28, 384, F32) == (14, 2, 7, 4, 128)
+    # the layout: the ring of 5 h1 rows, the y/g tile, keep, weight tiles
+    assert tfront.front_smem_bytes(256, 56, 32, 2, BF) == (
+        5 * 60 * 256 * 2 + 64 * 264 * 2 + 64 * 4 + 2 * 256 * 40 * 2)
+    assert tfront.front_smem_bytes(384, 14, 16, 2, F32) == (
+        5 * 18 * 384 * 4 + 20 * 388 * 4 + 80 + 2 * 384 * 20 * 4)
+
+
+def test_front_shape_checks_refuse_what_the_kernel_cannot_take():
+    for args in ((1, 8, 8, 192, BF), (0, 8, 8, 256, BF), (1, 0, 8, 256, F32),
+                 (1, 8, 8, 256, torch.float16)):
+        with pytest.raises(ValueError, match="no kernel plan"):
+            tfront.front_plan(*args)

@@ -156,8 +156,6 @@ def test_mbconv_kernels_ragged_plans_and_rerun_bits(cuda, dtype, geo):
 
 
 def test_mbconv_kernels_make_one_launch_and_no_memset(cuda):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     # weights as the model passes them: views of OIHW parameters (no copy)
     g = torch.Generator(device=cuda).manual_seed(15)
     bf = torch.bfloat16
@@ -170,13 +168,7 @@ def test_mbconv_kernels_make_one_launch_and_no_memset(cuda):
     calls.append((fd.expand_dw_silu_pool,
                   (x, we.t(), be, wd.permute(2, 3, 1, 0), bd)))
     for fn, args in calls:
-        fn(*args)  # the counters' one-time allocation
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(*args)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
+        names = _profile_kernels(lambda: fn(*args))
         assert len(names) == 1 and "mbconv" in names[0], names
 
 
@@ -461,6 +453,111 @@ def test_fused_ln_mlp_kernel_rejects_what_it_cannot_take(cuda):
                                               cuda))
 
 
+# ragged against the launch plans: M one past a row block (bf16 128 at C
+# 256, 96 at C 384; f32 64), M below one block and 1, many blocks with a
+# short last one, and F 96 (the 32-wide chunk where 64 does not divide F).
+# A rerun gives the same bits.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c,f", [(129, 256, 1024), (97, 384, 1536),
+                                   (65, 256, 96), (33, 384, 1536),
+                                   (1, 256, 1024), (12545, 384, 1536),
+                                   (50177, 256, 1024)])
+def test_fused_ln_mlp_kernel_ragged_plans_and_rerun_bits(cuda, dtype, m, c,
+                                                         f):
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x = (torch.randn(m, c, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    args = (x, *_convblock_params(g, c, f, dtype, cuda))
+    before = fm.fused_ln_mlp.launches
+    got = fm.fused_ln_mlp(*args)
+    torch.cuda.synchronize()
+    assert fm.fused_ln_mlp.launches == before + 1
+    _close(got, fm.fused_ln_mlp_reference(*args), fm.TOL[dtype])
+    assert torch.equal(fm.fused_ln_mlp(*args), got)
+
+
+def _profile_kernels(fn, traces=5):
+    """Names of the device activities one call of ``fn`` launches, after a
+    call that makes any one-time allocation.  A trace that recorded no
+    device activity at all lost the call's (torch.profiler sometimes
+    records nothing for a traced call), so the call is traced again, up to
+    ``traces`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(traces):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def test_conv_stage_kernels_make_one_launch_a_call(cuda):
+    """Weights as the model passes them (views of [out, in] conv weights in
+    the compute dtype), float32 vectors: the LN-MLP call is its kernel and
+    nothing else (no memset, no copy); the front call launches its kernel
+    once (its taps are converted to float32 values by the wrapper)."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    bf = torch.bfloat16
+    x = (torch.randn(300, 256, generator=g, device=cuda)).to(bf)
+    ls, lb, _, b1, _, b2 = _convblock_params(g, 256, 1024, torch.float32,
+                                             cuda)
+    w1 = torch.randn(1024, 256, generator=g, device=cuda).to(bf)
+    w2 = torch.randn(256, 1024, generator=g, device=cuda).to(bf)
+    names = _profile_kernels(lambda: fm.fused_ln_mlp(
+        x, ls, lb, w1.t(), b1, w2.t(), b2))
+    assert len(names) == 1 and "fused_ln_mlp" in names[0], names
+    args = list(_front_args(g, 2, 28, 28, 384, bf, cuda, True))
+    args[3] = torch.randn(384, 384, generator=g, device=cuda).to(bf).t()
+    names = _profile_kernels(lambda: fcb.fused_front(*args))
+    assert sum("fused_front" in n for n in names) == 1, names
+    assert not any("memset" in n.lower() for n in names), names
+
+
+@pytest.mark.parametrize("bad", ["smem", "bm", "fc", "stages"])
+def test_fused_ln_mlp_kernel_refuses_a_plan_that_is_not_its(cuda, monkeypatch,
+                                                          bad):
+    """The library checks the wrapper's plan: another shared-memory size, or
+    a row block, chunk or ring depth it is not built for, is refused."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    for dtype, c in ((torch.bfloat16, 256), (torch.float32, 384)):
+        x = torch.randn(200, c, generator=g, device=cuda).to(dtype)
+        args = (x, *_convblock_params(g, c, 4 * c, dtype, cuda))
+        fm.fused_ln_mlp(*args)
+        plan = fm.ln_mlp_plan
+        change = {"smem": 16, "bm": 8, "fc": -8, "stages": 1}[bad]
+        monkeypatch.setattr(fm, "ln_mlp_plan", lambda *a: {
+            **plan(*a), bad: plan(*a)[bad] + change})
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fm.fused_ln_mlp(*args)
+        monkeypatch.setattr(fm, "ln_mlp_plan", plan)
+
+
+@pytest.mark.parametrize("bad", ["smem", "band_w", "n_bx", "rows", "n_by",
+                                 "kc"])
+def test_fused_front_kernel_refuses_a_plan_that_is_not_its(cuda, monkeypatch,
+                                                         bad):
+    """The library checks the wrapper's plan: another shared-memory size or K
+    chunk, bands or row bands that do not cover the image exactly once, are
+    refused."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _front_args(g, 2, 28, 28, 384, dtype, cuda, True)
+        fcb.fused_front(*args)
+        plan = fcb.front_plan
+        change = {"smem": 16, "band_w": -1, "n_bx": 1, "rows": -1, "n_by": 1,
+                  "kc": -8}[bad]
+        monkeypatch.setattr(fcb, "front_plan", lambda *a: {
+            **plan(*a), bad: plan(*a)[bad] + change})
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fcb.fused_front(*args)
+        monkeypatch.setattr(fcb, "front_plan", plan)
+
+
 # N 1, 49, 196 and 197 (a ragged last warp and key tile) at D 32 and 64,
 # and N 300 (three query blocks, five key tiles)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -544,6 +641,28 @@ def test_fused_front_kernel_matches_plain(cuda, dtype, with_keep, b, h, w, c):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (b, h, w, c)
     _close(got, fcb.fused_front_reference(*args), fcb.TOL[dtype])
+
+
+# ragged against the plans: H and W not multiples of the band (several
+# bands with a short last one, the 2-column seams), W and H 1 and 7, B 1
+# (many row bands of a few rows), with and without keep; a rerun gives the
+# same bits
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_keep", [False, True])
+@pytest.mark.parametrize("b,h,w,c", [(1, 1, 1, 256), (1, 7, 7, 384),
+                                     (3, 57, 61, 384), (2, 5, 30, 256),
+                                     (1, 56, 56, 256), (2, 29, 15, 384)])
+def test_fused_front_kernel_ragged_plans_and_rerun_bits(cuda, dtype,
+                                                        with_keep, b, h, w,
+                                                        c):
+    g = torch.Generator(device=cuda).manual_seed(21)
+    args = _front_args(g, b, h, w, c, dtype, cuda, with_keep)
+    before = fcb.fused_front.launches
+    got = fcb.fused_front(*args)
+    torch.cuda.synchronize()
+    assert fcb.fused_front.launches == before + 1
+    _close(got, fcb.fused_front_reference(*args), fcb.TOL[dtype])
+    assert torch.equal(fcb.fused_front(*args), got)
 
 
 def test_fused_front_kernel_rejects_what_it_cannot_take(cuda):
