@@ -701,9 +701,9 @@ KERNEL_FAMILIES = (  # (label, substrings of the kernel name), first match
     ("fused front kernel", ("fused_front",)),
     ("warp kernel", ("affine_warp",)),
     ("GLCM kernel", ("glcm_counts",)),
-    ("GLRLM runs kernels", ("runs_rows", "runs_lines")),
+    ("GLRLM runs kernel", ("runs_band",)),
     ("joint histogram kernel", ("joint_hist",)),
-    ("connected-components kernels", ("cc_init", "cc_merge", "cc_compress")),
+    ("connected-components kernels", ("cc_tile", "cc_border", "cc_flatten")),
     ("sorts", ("sort", "radix")),
     ("scatters, index_add", ("scatter", "index_add", "indexfunc")),
     ("fused MBConv kernels", ("mbconv",)),
@@ -913,7 +913,10 @@ def _rad_chunk_levels(device, rgb, masks, types=RAD_CHECK_TYPES):
 
 def _rad_edge_cases(device, h=SRC_HW[0], w=SRC_HW[1]):
     """Full-frame edge maps: an empty mask, a full frame of random levels,
-    one gray level over the whole frame (600-px runs), the serpentine."""
+    one gray level over the whole frame (600-px runs), the serpentine (one
+    zone that bends every row, so it crosses every border between tile
+    rows) and the vertical serpentine (it bends every column, so it crosses
+    every border between tile columns)."""
     g = torch.Generator(device=device).manual_seed(SEED + 8)
     rand = torch.randint(1, 7, (h, w), generator=g, device=device,
                          dtype=torch.int32)
@@ -921,9 +924,14 @@ def _rad_edge_cases(device, h=SRC_HW[0], w=SRC_HW[1]):
     snake[0::2] = True
     for r in range(1, h, 2):
         snake[r, w - 1 if (r // 2) % 2 == 0 else 0] = True
+    vsnake = torch.zeros((h, w), dtype=torch.bool, device=device)
+    vsnake[:, 0::2] = True
+    for c in range(1, w, 2):
+        vsnake[h - 1 if (c // 2) % 2 == 0 else 0, c] = True
     levels = torch.stack([torch.zeros_like(rand), rand, torch.ones_like(rand),
-                          torch.where(snake, 7, 2).to(torch.int32)])
-    mask = torch.full((4, h, w), 255, dtype=torch.uint8, device=device)
+                          torch.where(snake, 7, 2).to(torch.int32),
+                          torch.where(vsnake, 7, 2).to(torch.int32)])
+    mask = torch.full((5, h, w), 255, dtype=torch.uint8, device=device)
     mask[0] = 0
     return levels, mask
 
@@ -932,8 +940,9 @@ def check_radiomics_kernels(device, rgb, masks):
     """Each radiomics kernel against its plain version, bit for bit: on a
     real chunk's derived images (M = 64 maps of 450×600: original, LoG σ 3,
     wavelet-HH) and on the full-frame edge cases (empty mask, full frame,
-    single level, a run longer than the histogram's length range, the
-    serpentine) → worst |kernel − plain| per kernel (must be 0)."""
+    single level, a run longer than the histogram's length range, both
+    serpentines, each one zone) → worst |kernel − plain| per kernel (must
+    be 0)."""
     fns = _rad_fns()
     cases = dict(_rad_chunk_levels(device, rgb, masks))
     cases["edge cases"] = _rad_edge_cases(device)
@@ -963,9 +972,10 @@ def check_radiomics_kernels(device, rgb, masks):
         print(f"check radiomics kernels, {label} {tuple(levels.shape)}: "
               + ", ".join(f"{k} {worst[k]:.0f}" for k in RAD_KERNELS))
     levels, _ = cases["edge cases"]
-    snake = outs["connected_components"][0][3][levels[3] == 7]
-    if snake.unique().numel() != 1:
-        failures.append("the serpentine is not one zone")
+    for k, which in ((3, "serpentine"), (4, "vertical serpentine")):
+        snake = outs["connected_components"][0][k][levels[k] == 7]
+        if snake.unique().numel() != 1:
+            failures.append(f"the {which} is not one zone")
     if failures:
         raise AssertionError(f"radiomics kernel != plain: {failures}")
     return worst
@@ -1074,21 +1084,51 @@ def rad_bound_ms(name, m, h, w):
     return nbytes / HBM_BPS * 1e3, 10 * elems / F32_FLOPS * 1e3
 
 
+def rad_chunk_kernels(fn, label):
+    """Device ms and launches of each radiomics kernel in one traced call of
+    ``fn`` (a chunk's extraction), printed; a trace that recorded no device
+    activity at all is taken again, up to 5 times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pats = {"glcm_matrices": ("glcm_counts",), "glrlm_runs": ("runs_band",),
+            "joint_histogram": ("joint_hist",),
+            "connected_components": ("cc_tile", "cc_border", "cc_flatten")}
+    fn()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ev:
+            break
+    out = {}
+    for name, keys in pats.items():
+        hits = [e for e in ev if any(k in e.name for k in keys)]
+        out[name] = (sum(e.time_range.elapsed_us() for e in hits) / 1e3,
+                     len(hits))
+    print(f"radiomics kernels of {label} (device ms, launches): " + ", ".join(
+        f"{k} {ms:.3f} ms in {n}" for k, (ms, n) in out.items()))
+    return out
+
+
 def time_radiomics(device, rgb, masks):
     """Each radiomics kernel at the path's shapes (one chunk's original
     image: M = 64 maps of 450×600) against its plain version and, where one
     PyTorch call computes the same function, that call (torch.bincount over
     the packed keys of the counted pairs, the keys built inside the timed
-    call); then extraction
-    img/s on the kernel and plain paths, peak device memory, and a profile
-    of one chunk by kernel family."""
+    call); B7 and B5, whose time depends on the data, also on the chunk's
+    LoG σ 3 and wavelet-HH images (the ``kernels`` line keeps the original
+    image's); then extraction img/s on the kernel and plain paths, peak
+    device memory, a profile of one chunk by kernel family, and each
+    radiomics kernel's device time and launches in one chunk."""
     from multimodal_isic_tpu_torch.analysis.radiomics import RadiomicsExtractor
     from multimodal_isic_tpu_torch.ops import histogram as Hm
     from multimodal_isic_tpu_torch.ops.texture import ANGLES_2D, shift2d
     from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
     fns = _rad_fns()
-    levels, m4 = _rad_chunk_levels(device, rgb[:RAD_CHUNK],
-                                   masks[:RAD_CHUNK], ("original",))["original"]
+    by_type = _rad_chunk_levels(device, rgb[:RAD_CHUNK], masks[:RAD_CHUNK])
+    levels, m4 = by_type["original"]
     inside = m4 > 0
     m, h, w = levels.shape
     codes = _run_codes(fns["glrlm_runs"][0](levels, inside))
@@ -1112,28 +1152,33 @@ def time_radiomics(device, rgb, masks):
                "joint_histogram": lambda: Hm.library_joint_histogram(
                    *codes, NG, MAX_LEN)}
     out = {}
-    for name in RAD_KERNELS:
+    cases = [(name, "original", args[name]) for name in RAD_KERNELS]
+    cases += [(name, t, (lv, mk > 0)) for t, (lv, mk) in by_type.items()
+              if t != "original"
+              for name in ("connected_components", "glrlm_runs")]
+    for name, label, a in cases:
         kern, ref = fns[name]
         runs = {"kernel": [], "plain": [], "library": []}
         order = ["plain", "kernel", "kernel", "plain"]
-        if name in library:
+        if name in library and label == "original":
             order += ["library", "library"]
         for which in order:
-            fn = {"kernel": lambda: kern(*args[name]),
-                  "plain": lambda: ref(*args[name]),
+            fn = {"kernel": lambda: kern(*a), "plain": lambda: ref(*a),
                   "library": library.get(name)}[which]
             iters = 20 if which == "kernel" else 3
             runs[which].append(timeit_closed(fn, iters=iters, repeats=3))
         med = {k: min(r["median"] for r in v) * 1e3 for k, v in runs.items() if v}
         b_bytes, b_ops = rad_bound_ms(name, m, h, w)
         bound = max(b_bytes, b_ops)
-        out[name] = (med["kernel"], med["plain"], bound, b_bytes, b_ops,
-                     med.get("library"))
+        if label == "original":
+            out[name] = (med["kernel"], med["plain"], bound, b_bytes, b_ops,
+                         med.get("library"))
         lib = (f", library {med['library']:.4f} ms" if "library" in med
                else ", library none")
-        print(f"time {name} M{m} {h}x{w}: kernel {med['kernel']:.4f} ms, "
-              f"plain {med['plain']:.4f} ms ({med['plain'] / med['kernel']:.1f}x)"
-              f"{lib}; bound {bound:.4f} ms (bytes {b_bytes:.4f}, operations "
+        print(f"time {name} on {label} M{m} {h}x{w}: kernel "
+              f"{med['kernel']:.4f} ms, plain {med['plain']:.4f} ms "
+              f"({med['plain'] / med['kernel']:.1f}x){lib}; bound "
+              f"{bound:.4f} ms (bytes {b_bytes:.4f}, operations "
               f"{b_ops:.4f}): {bound / med['kernel']:.1%} of it")
 
     chunk = (rgb[:RAD_CHUNK], masks[:RAD_CHUNK])
@@ -1158,6 +1203,8 @@ def time_radiomics(device, rgb, masks):
     for which in ("kernel", "plain"):
         profile_steps(lambda: exs[which]._extract(*chunk),
                       f"radiomics chunk of {RAD_CHUNK}, {which} path", steps=1)
+    rad_chunk_kernels(lambda: exs["kernel"]._extract(*chunk),
+                      f"a chunk of {RAD_CHUNK}, kernel path")
     return out
 
 

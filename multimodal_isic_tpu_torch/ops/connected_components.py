@@ -9,9 +9,12 @@ within the map) of the pixel's component of equal-level 8-neighbours; H·W
 outside (the same labels as :67-70 and :132).
 
 - On a CUDA tensor :func:`connected_components` runs ``csrc/
-  connected_components.cu`` (three launches: horizontal-run init, union-find
-  merge, path compression; one call counted) or raises: there is no
-  fallback.
+  connected_components.cu`` (up to three launches: a union-find in shared
+  memory a tile, the unions across tile borders, the flattening of the
+  chains in the tiles they changed; one call counted) or raises: there is
+  no fallback.  The wrapper owns the launch plan (:func:`cc_plan`), which
+  the library checks against its own layout and refuses otherwise, and the
+  int32 scratch of a flag a tile.
 - On a CPU tensor it runs :func:`connected_components_reference`, the JAX
   hooking loop: two pointer jumps and a min-hook per round
   (``scatter_reduce_(…, "amin")`` for ``.at[].min``), until no label
@@ -82,11 +85,53 @@ def connected_components_reference(levels: torch.Tensor, inside: torch.Tensor,
     return torch.where(inside, label, big)
 
 
+# The card's kernel (csrc/connected_components.cu; its constants of the same
+# names): a tile is at most 32 rows by 128 columns (a quad a lane), its
+# columns a multiple of 4; a warp a row, up to 16 warps.
+MAX_TILE_H, MAX_TILE_W = 32, 128
+MAX_SMEM = 232448  # shared memory a block may have on the H100
+SMEM_SHARE = 57344  # a quarter of the SM's 228 KB less 1 KB a block: 4 blocks
+
+
+def cc_smem_bytes(tile_h: int, tile_w: int) -> int:
+    """Shared memory of a tile block: an int32 parent, an int32 level, two
+    queued links (uint32) and a 1-byte flag a pixel."""
+    return 17 * tile_h * tile_w
+
+
+@functools.cache
+def cc_plan(m: int, h: int, w: int) -> dict:
+    """The card's launch plan for [m, h, w] maps: tiles of ``tile_h`` rows
+    (at most ``MAX_TILE_H``) by ``tile_w`` columns (a multiple of 4, at most
+    ``MAX_TILE_W``), evened out so that ``n_ty`` × ``n_tx`` tiles cover the
+    map exactly once, as tall as four blocks of 512 threads an SM allow
+    (``SMEM_SHARE``); ``threads`` (a warp a tile row, at most 16 warps) and
+    ``smem`` (:func:`cc_smem_bytes`) a block.  The library
+    refuses any other plan.  Raises ``ValueError`` for maps the kernel
+    cannot take."""
+    if m < 1 or h < 1 or w < 1 or m > 65535:
+        raise ValueError(f"connected_components: no plan for {m} maps of "
+                         f"{h}x{w}")
+    if h * w >= 2 ** 31 - 1:
+        raise ValueError(f"connected_components: {h}x{w} labels overflow int32")
+    n_tx = -(-w // MAX_TILE_W)
+    tile_w = -(-w // (4 * n_tx)) * 4
+    rows = min(MAX_TILE_H, SMEM_SHARE // (17 * tile_w))
+    n_ty = -(-h // rows)
+    tile_h = -(-h // n_ty)
+    n_ty = -(-h // tile_h)
+    if n_ty > 65535:
+        raise ValueError(f"connected_components: {n_ty} tile rows > 65535")
+    return {"tile_h": tile_h, "tile_w": tile_w, "n_ty": n_ty,
+            "n_tx": -(-w // tile_w), "threads": 32 * min(tile_h, 16),
+            "smem": cc_smem_bytes(tile_h, tile_w)}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("connected_components")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.connected_components.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+    lib.connected_components.argtypes = [vp] * 4 + [i32] * 9 + [vp]
     lib.connected_components.restype = i32
     lib.connected_components_error_string.argtypes = [i32]
     lib.connected_components_error_string.restype = ctypes.c_char_p
@@ -106,11 +151,17 @@ def connected_components(levels: torch.Tensor,
     out = torch.empty((m, h, w), dtype=torch.int32, device=levels.device)
     if out.numel() == 0:
         return out
+    p = cc_plan(m, h, w)
+    dirty = torch.empty(m * p["n_ty"] * p["n_tx"], dtype=torch.int32,
+                        device=levels.device)
     lib = _lib()
     with torch.cuda.device(levels.device):
         stream = torch.cuda.current_stream(levels.device).cuda_stream
-        rc = lib.connected_components(levels.data_ptr(), inside.data_ptr(),
-                                      out.data_ptr(), m, h, w, stream)
+        rc = lib.connected_components(
+            levels.data_ptr(), inside.data_ptr(), out.data_ptr(),
+            dirty.data_ptr(), m, h, w,
+            p["tile_h"], p["tile_w"], p["n_ty"], p["n_tx"], p["threads"],
+            p["smem"], stream)
     if rc != 0:
         raise RuntimeError(
             "connected_components launch failed: "

@@ -10,8 +10,14 @@ the gray level, and the distance to the run's end along the angle + 1
 (clipped to 11 bits); 0 outside the ROI.  The same bit layout (:32-34) and
 the same asserts (:93-99) as the JAX package.
 
-- On a CUDA tensor :func:`glrlm_runs` launches ``csrc/glrlm_runs.cu`` or
-  raises: there is no fallback.
+- On a CUDA tensor :func:`glrlm_runs` launches ``csrc/glrlm_runs.cu`` (one
+  kernel: each block writes all four angles of a band of rows from shared
+  memory, its runs that leave the band resolved from the first run ends
+  that the bands below publish; one call counted) or raises: there is no
+  fallback.  The wrapper owns the launch plan (:func:`runs_plan`), the
+  int16 scratch of the published ends and, per (device, stream), the
+  kernel's ticket counter, epoch and ready flags; the library checks the
+  plan against its own layout and refuses any other.
 - On a CPU tensor it runs :func:`glrlm_runs_reference`, the doubling
   reverse-cummin formulation (``texture.run_starts_and_lengths``).
 
@@ -69,11 +75,76 @@ def unpack_runs(packed: torch.Tensor):
     return start, gray, length
 
 
+# The card's kernels (csrc/glrlm_runs.cu; its constants of the same names)
+MAX_BAND = 32        # rows a band: one 32-bit mask of run ends a line
+BAND_ROWS = 16       # the plan's band height where H and W allow
+THREADS = 256
+MAX_SMEM = 232448    # shared memory a block may have on the H100
+
+
+def _round(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
+def band_smem_bytes(band_h: int, w: int) -> int:
+    """Shared memory of the band kernel (its ``band_smem``): levels (int32)
+    and flags (1 byte) of band_h + 2 rows of W cells (rounded up to 4), the
+    run-end masks [3][W + band_h, rounded up, + 4] and the carries [3][W]
+    (int32), the block's ticket and epoch."""
+    wp = _round(w, 4)
+    return ((band_h + 2) * wp * 4 + _round((band_h + 2) * wp, 16)
+            + 3 * (_round(w + band_h, 4) + 4) * 4 + 3 * wp * 4 + 16)
+
+
+@functools.cache
+def runs_plan(m: int, h: int, w: int) -> dict:
+    """The card's launch plan for [m, h, w] maps: bands of ``band_h`` rows
+    (at most ``BAND_ROWS``, fewer where a band of W cells would not fit the
+    card's shared memory), evened out so that ``n_bands`` bands cover H
+    exactly once; ``threads`` and shared memory (``smem``) a block.  The
+    library refuses any other plan.  Raises ``ValueError`` for maps the
+    kernel cannot take."""
+    if m < 1 or h < 1 or w < 1 or m > 65535:
+        raise ValueError(f"glrlm_runs: no plan for {m} maps of {h}x{w}")
+    _check_sizes(h, w)
+    rows = BAND_ROWS
+    while rows > 1 and band_smem_bytes(rows, w) > MAX_SMEM:
+        rows -= 1
+    if band_smem_bytes(rows, w) > MAX_SMEM:
+        raise ValueError(f"glrlm_runs: no band of {w} cells fits "
+                         f"{MAX_SMEM} bytes of shared memory")
+    n_bands = -(-h // rows)
+    band_h = -(-h // n_bands)
+    return {"band_h": band_h, "n_bands": -(-h // band_h), "threads": THREADS,
+            "smem": band_smem_bytes(band_h, w)}
+
+
+_STREAM_STATE = {}
+
+
+def _stream_state(device: torch.device, stream, n: int):
+    """The kernel's ticket counter and epoch (int32 [2]) and the bands'
+    ready flags (int32, at least ``n``) for one (device, stream), zeroed
+    once, at the stream's first call: every launch leaves the counter at 0
+    and moves the epoch on, so a flag left from an earlier launch never
+    reads as ready.  (A CUDA graph that captures a call replays its
+    launches, epochs included, only correctly if that first call came
+    before the capture.)"""
+    key = (device.index, stream)
+    state, ready = _STREAM_STATE.get(key, (None, None))
+    if state is None:
+        state = torch.zeros(2, dtype=torch.int32, device=device)
+    if ready is None or ready.numel() < n:
+        ready = torch.zeros(n, dtype=torch.int32, device=device)
+    _STREAM_STATE[key] = (state, ready)
+    return state, ready
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("glrlm_runs")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.glrlm_runs.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+    lib.glrlm_runs.argtypes = [vp] * 6 + [i32] * 7 + [vp]
     lib.glrlm_runs.restype = i32
     lib.glrlm_runs_error_string.argtypes = [i32]
     lib.glrlm_runs_error_string.restype = ctypes.c_char_p
@@ -91,11 +162,17 @@ def glrlm_runs(levels: torch.Tensor, inside: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, 4, h, w), dtype=torch.int32, device=levels.device)
     if out.numel() == 0:
         return out
+    p = runs_plan(m, h, w)
+    ends = torch.empty((m, p["n_bands"], 3, w), dtype=torch.int16,
+                       device=levels.device)
     lib = _lib()
     with torch.cuda.device(levels.device):
         stream = torch.cuda.current_stream(levels.device).cuda_stream
-        rc = lib.glrlm_runs(levels.data_ptr(), inside.data_ptr(),
-                            out.data_ptr(), m, h, w, stream)
+        state, ready = _stream_state(levels.device, stream, m * p["n_bands"])
+        rc = lib.glrlm_runs(
+            levels.data_ptr(), inside.data_ptr(), out.data_ptr(),
+            ends.data_ptr(), ready.data_ptr(), state.data_ptr(), m, h, w,
+            p["band_h"], p["n_bands"], p["threads"], p["smem"], stream)
     if rc != 0:
         raise RuntimeError("glrlm_runs launch failed: "
                            f"{lib.glrlm_runs_error_string(rc).decode()}")

@@ -409,6 +409,100 @@ def test_cc_kernel_serpentine_is_one_zone(cuda, h, w):
     assert got[snake].unique().numel() == 1 and int(got[snake][0]) == 0
 
 
+# Sizes that straddle the plans' tiles (16 rows by up to 128 columns) and
+# bands (16 rows) by one: one row, one column, one band, H under one band,
+# widths that are no multiple of 4 (the scalar paths).
+RAGGED_SIZES = [(2, 15, 600), (2, 16, 600), (2, 17, 600), (2, 31, 128),
+                (2, 33, 129), (2, 1, 600), (2, 450, 1), (2, 5, 601),
+                (1, 449, 127), (1, 451, 603), (3, 32, 257)]
+
+
+@pytest.mark.parametrize("m,h,w", RAGGED_SIZES)
+@pytest.mark.parametrize("vmax", [2, 64])
+def test_cc_and_runs_kernels_ragged_plans_and_rerun_bits(cuda, m, h, w, vmax):
+    g = torch.Generator(device=cuda).manual_seed(20)
+    lv, inside = _maps(g, m, h, w, vmax, cuda)
+    for fn, ref in ((cc.connected_components, cc.connected_components_reference),
+                    (runs.glrlm_runs, runs.glrlm_runs_reference)):
+        before = fn.launches
+        got = fn(lv, inside)
+        again = fn(lv, inside)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert torch.equal(got, ref(lv, inside))
+        assert torch.equal(again, got)
+
+
+def _vertical_serpentine(h, w, device):
+    lv, snake = _serpentine(w, h, device)
+    return lv.transpose(1, 2).contiguous(), snake.transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("h,w", [(40, 41), (450, 600)])
+def test_cc_and_runs_kernels_on_both_serpentines(cuda, h, w):
+    """Each serpentine is one zone that crosses every tile border: the
+    horizontal one every tile row, the vertical one every tile column."""
+    for lv, snake in (_serpentine(h, w, cuda), _vertical_serpentine(h, w, cuda)):
+        inside = torch.ones_like(snake)
+        got = cc.connected_components(lv, inside)
+        assert torch.equal(got, cc.connected_components_reference(lv, inside))
+        assert got[snake].unique().numel() == 1 and int(got[snake][0]) == 0
+        assert torch.equal(runs.glrlm_runs(lv, inside),
+                           runs.glrlm_runs_reference(lv, inside))
+
+
+def test_cc_and_runs_kernels_on_one_component_over_the_frame(cuda):
+    """One level over the whole 450×600 frame: one zone labelled 0, runs as
+    long as the frame's rows, columns and diagonals."""
+    lv = torch.full((2, 450, 600), 5, dtype=torch.int32, device=cuda)
+    inside = torch.ones_like(lv, dtype=torch.bool)
+    got = cc.connected_components(lv, inside)
+    assert (got == 0).all()
+    assert torch.equal(runs.glrlm_runs(lv, inside),
+                       runs.glrlm_runs_reference(lv, inside))
+
+
+def test_cc_and_runs_kernels_launch_counts(cuda):
+    """At the radiomics chunk's map size B7 makes three device launches a
+    call and B5 one; one map under one tile makes one B7 launch."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    for (m, h, w), n_cc, n_runs in (((2, 450, 600), 3, 1), ((2, 9, 40), 1, 1)):
+        lv, inside = _maps(g, m, h, w, 3, cuda)
+        names = _profile_kernels(lambda: cc.connected_components(lv, inside))
+        assert len(names) == n_cc and all("cc_" in n for n in names), names
+        names = _profile_kernels(lambda: runs.glrlm_runs(lv, inside))
+        assert len(names) == n_runs and all("runs_" in n for n in names), names
+
+
+@pytest.mark.parametrize("bad", ["smem", "tile_h", "tile_w", "n_ty", "threads"])
+def test_cc_kernel_refuses_a_plan_that_is_not_its(cuda, monkeypatch, bad):
+    """The library checks the wrapper's plan: another shared-memory size or
+    thread count, or tiles that do not cover the map once, are refused."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    lv, inside = _maps(g, 2, 45, 130, 3, cuda)
+    plan = cc.cc_plan
+    change = {"smem": 16, "tile_h": -1, "tile_w": 4, "n_ty": 1,
+              "threads": 32}[bad]
+    monkeypatch.setattr(cc, "cc_plan", lambda *a: {
+        **plan(*a), bad: plan(*a)[bad] + change})
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cc.connected_components(lv, inside)
+
+
+@pytest.mark.parametrize("bad", ["smem", "band_h", "n_bands", "threads"])
+def test_runs_kernel_refuses_a_plan_that_is_not_its(cuda, monkeypatch, bad):
+    """The library checks the wrapper's plan: other shared-memory sizes or
+    thread counts, or bands that do not cover H once, are refused."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    lv, inside = _maps(g, 2, 45, 130, 3, cuda)
+    plan = runs.runs_plan
+    change = {"smem": 16, "band_h": -1, "n_bands": 1, "threads": 1}[bad]
+    monkeypatch.setattr(runs, "runs_plan", lambda *a: {
+        **plan(*a), bad: plan(*a)[bad] + change})
+    with pytest.raises(RuntimeError, match="launch failed"):
+        runs.glrlm_runs(lv, inside)
+
+
 # ---------------------------------------------------------------- ConvMAE
 # kernel vs plain tolerances: each ops module's ``TOL`` (chip_smoke.py holds
 # the kernels to the same tables)
