@@ -486,14 +486,15 @@ def _ssr_affines(cases, h, w, device):
 
 def check_warp(device, bsz=BATCH):
     """Warp kernel vs its plain version and vs grid_sample: the policy's
-    draws at bs 16, 380², and its domain corners, the identity, overhangs
-    beyond 128 px and an odd non-square size → worst error vs plain."""
+    draws at bs 16 and 128, 380², and its domain corners, the identity,
+    overhangs beyond 128 px and an odd non-square size → worst error vs
+    plain."""
     from multimodal_isic_tpu_torch.data.augment import ssr_draw, ssr_inverse
     from multimodal_isic_tpu_torch.ops import affine_warp as aw
     g = torch.Generator(device=device).manual_seed(SEED + 2)
     corners = [(sx * 0.05, sy * 0.05, sc, sa * 15.0) for sx in (-1, 1)
                for sy in (-1, 1) for sc in (0.9, 1.1) for sa in (-1, 1)]
-    cases = {"policy draws": None,
+    cases = {"policy draws": None, "policy draws bs 128": None,
              "domain corners + identity": corners + [(0.0, 0.0, 1.0, 0.0)],
              "overhang > 128 px": [(0.45, -0.4, 0.6, 170.0),
                                    (-0.6, 0.3, 1.4, -95.0),
@@ -505,8 +506,8 @@ def check_warp(device, bsz=BATCH):
     for label, hw in [(k, (IMG, IMG)) for k in cases] + [("odd 97x131",
                                                           (97, 131))]:
         h, w = hw
-        if label == "policy draws":
-            d = ssr_draw(g, bsz)
+        if label.startswith("policy draws"):
+            d = ssr_draw(g, LARGE_BATCH if label.endswith("128") else bsz)
             inv = ssr_inverse(h, w, d["dx"], d["dy"], d["scale"], d["angle"])
             apply = d["apply"]
         else:
@@ -700,7 +701,7 @@ KERNEL_FAMILIES = (  # (label, substrings of the kernel name), first match
     ("attention kernel", ("flash_attention",)),
     ("fused front kernel", ("fused_front",)),
     ("warp kernel", ("affine_warp",)),
-    ("GLCM kernel", ("glcm_counts",)),
+    ("GLCM kernel", ("glcm_",)),
     ("GLRLM runs kernel", ("runs_band",)),
     ("joint histogram kernel", ("joint_hist",)),
     ("connected-components kernels", ("cc_tile", "cc_border", "cc_flatten")),
@@ -981,6 +982,33 @@ def check_radiomics_kernels(device, rgb, masks):
     return worst
 
 
+def check_radiomics_capture(device, levels, mask):
+    """B4, B5 and B7 captured in one CUDA graph on a stream that had no
+    eager call before (B5's stream state is made inside the capture),
+    replayed 3 times on the chunk's original-image maps: every replay bit
+    for bit equal to the plain versions."""
+    from multimodal_isic_tpu_torch.ops import connected_components as C
+    from multimodal_isic_tpu_torch.ops import glcm as G
+    from multimodal_isic_tpu_torch.ops import glrlm_runs as R
+    inside = mask > 0
+    want = (G.glcm_matrices_reference(levels, mask),
+            R.glrlm_runs_reference(levels, inside),
+            C.connected_components_reference(levels, inside))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        outs = (G.glcm_matrices(levels, mask), R.glrlm_runs(levels, inside),
+                C.connected_components(levels, inside))
+    same = []
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append([torch.equal(o, w) for o, w in zip(outs, want)])
+    print(f"radiomics kernels in a CUDA graph ({tuple(levels.shape)}), 3 "
+          f"replays, equal to plain (glcm, runs, cc): {same}")
+    if not all(all(r) for r in same):
+        raise AssertionError(f"captured radiomics kernels != plain: {same}")
+
+
 def _feature_err(got, want):
     """|got − want|, 0 where both are the same infinity (an empty ROI's
     Range is −inf on every path, as in the JAX package)."""
@@ -1090,7 +1118,7 @@ def rad_chunk_kernels(fn, label):
     activity at all is taken again, up to 5 times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    pats = {"glcm_matrices": ("glcm_counts",), "glrlm_runs": ("runs_band",),
+    pats = {"glcm_matrices": ("glcm_",), "glrlm_runs": ("runs_band",),
             "joint_histogram": ("joint_hist",),
             "connected_components": ("cc_tile", "cc_border", "cc_flatten")}
     fn()
@@ -1117,9 +1145,9 @@ def time_radiomics(device, rgb, masks):
     image: M = 64 maps of 450×600) against its plain version and, where one
     PyTorch call computes the same function, that call (torch.bincount over
     the packed keys of the counted pairs, the keys built inside the timed
-    call); B7 and B5, whose time depends on the data, also on the chunk's
-    LoG σ 3 and wavelet-HH images (the ``kernels`` line keeps the original
-    image's); then extraction img/s on the kernel and plain paths, peak
+    call); B4, B7 and B5, whose time depends on the data, also on the
+    chunk's LoG σ 3 and wavelet-HH images (the ``kernels`` line keeps the
+    original image's); then extraction img/s on the kernel and plain paths, peak
     device memory, a profile of one chunk by kernel family, and each
     radiomics kernel's device time and launches in one chunk."""
     from multimodal_isic_tpu_torch.analysis.radiomics import RadiomicsExtractor
@@ -1153,9 +1181,10 @@ def time_radiomics(device, rgb, masks):
                    *codes, NG, MAX_LEN)}
     out = {}
     cases = [(name, "original", args[name]) for name in RAD_KERNELS]
-    cases += [(name, t, (lv, mk > 0)) for t, (lv, mk) in by_type.items()
-              if t != "original"
-              for name in ("connected_components", "glrlm_runs")]
+    cases += [(name, t, (lv, mk) if name == "glcm_matrices" else (lv, mk > 0))
+              for t, (lv, mk) in by_type.items() if t != "original"
+              for name in ("glcm_matrices", "connected_components",
+                           "glrlm_runs")]
     for name, label, a in cases:
         kern, ref = fns[name]
         runs = {"kernel": [], "plain": [], "library": []}
@@ -2540,6 +2569,8 @@ def main() -> int:
           f"HAM10000's 10,015)")
     worst_err.update(check_radiomics_kernels(device, rgb[:RAD_CHUNK],
                                              masks[:RAD_CHUNK]))
+    check_radiomics_capture(device, *_rad_chunk_levels(
+        device, rgb[:RAD_CHUNK], masks[:RAD_CHUNK], ("original",))["original"])
     launches.update(radiomics_path(device, rgb, masks))
     rad_times = time_radiomics(device, rgb, masks)
     print(f"wall {time.perf_counter() - t_start:.1f} s")

@@ -13,7 +13,10 @@ computes in float32 only.
 
 - On a CUDA tensor :func:`affine_warp_batch` launches the hand-written kernel
   in ``csrc/affine_warp.cu`` (built with nvcc at first use, see ``_build``),
-  or raises: there is no fallback.
+  or raises: there is no fallback.  A warp writes a strip of 128 output
+  pixels of a row, four a lane, through a row buffer in shared memory with
+  16-byte stores; the wrapper owns the launch plan (:func:`warp_plan`) and
+  the library refuses any other.
 - On a CPU tensor it runs :func:`affine_warp_batch_reference`, the batched
   ``_warp_taps`` gather (order 1) at the same coordinates, which the tests
   hold against the JAX package and which the card's smoke run holds the
@@ -37,7 +40,34 @@ import torch.nn.functional as F
 
 from . import _build
 
-_MAX_BATCH = 65535  # gridDim.z
+# The card's kernel (csrc/affine_warp.cu; its constants of the same names)
+THREADS = 256
+WARPS = THREADS // 32
+PX_LANE = 4                 # output pixels a lane
+STRIP = 32 * PX_LANE        # output pixels a warp's task: one row's strip
+MAX_C = 56                  # channels the row buffers of a block hold
+MAX_SMEM = 232448           # shared memory a block may have on the H100
+
+
+@functools.cache
+def warp_plan(b: int, h: int, w: int, c: int, oh: int, ow: int) -> dict:
+    """The card's launch plan: ``px_lane`` output pixels a lane (pixels j,
+    j + 32, ... of a warp's strip of ``strip`` pixels of one output row),
+    ``threads`` a block (a warp a strip), ``blocks`` to cover the B·OH rows'
+    strips once, no source stage (``stage`` 0 bytes: the taps come from
+    device memory through L1) and ``smem``: a row buffer of strip·C + 4
+    floats a warp, through which a strip goes out in 16-byte stores.  The
+    library refuses any other plan.  Raises ``ValueError`` for what the
+    kernel cannot take."""
+    if min(b, h, w, c, oh, ow) < 1 or c > MAX_C:
+        raise ValueError(f"affine_warp_batch: no plan for [{b}, {h}, {w}, "
+                         f"{c}] → {oh}x{ow}")
+    tasks = b * oh * -(-ow // STRIP)
+    if tasks >= 2 ** 31:
+        raise ValueError(f"affine_warp_batch: {tasks} strips > 2^31 - 1")
+    return {"px_lane": PX_LANE, "strip": STRIP, "threads": THREADS,
+            "tasks": tasks, "blocks": -(-tasks // WARPS), "stage": 0,
+            "smem": WARPS * (STRIP * c + 4) * 4}
 
 
 # ----------------------------------------------------------- plain versions
@@ -140,7 +170,7 @@ def affine_warp_grid_sample(imgs: torch.Tensor, inv: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("affine_warp")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.affine_warp_f32.argtypes = [vp] * 4 + [i32] * 6 + [vp]
+    lib.affine_warp_f32.argtypes = [vp] * 4 + [i32] * 11 + [vp]
     lib.affine_warp_f32.restype = i32
     lib.affine_warp_error_string.argtypes = [i32]
     lib.affine_warp_error_string.restype = ctypes.c_char_p
@@ -191,17 +221,21 @@ def affine_warp_batch(imgs: torch.Tensor, inv: torch.Tensor,
         if t is not None and not t.is_contiguous():
             raise ValueError(f"affine_warp_batch: {name} must be contiguous")
     bsz, h, w, c = imgs.shape
-    if bsz > _MAX_BATCH:
-        raise ValueError(f"affine_warp_batch: batch {bsz} > {_MAX_BATCH}")
+    if imgs.data_ptr() % 16:
+        raise ValueError("affine_warp_batch: imgs must be 16-byte aligned")
     oh, ow = out_hw
     out = torch.empty((bsz, oh, ow, c), dtype=torch.float32, device=imgs.device)
+    if out.numel() == 0:
+        return out
+    p = warp_plan(bsz, h, w, c, oh, ow)
     lib = _lib()
     with torch.cuda.device(imgs.device):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
         rc = lib.affine_warp_f32(
             imgs.data_ptr(), inv.data_ptr(),
             None if apply is None else apply.data_ptr(), out.data_ptr(),
-            bsz, h, w, c, oh, ow, stream)
+            bsz, h, w, c, oh, ow, p["px_lane"], p["threads"], p["blocks"],
+            p["stage"], p["smem"], stream)
     if rc != 0:
         raise RuntimeError("affine_warp_batch launch failed: "
                            f"{lib.affine_warp_error_string(rc).decode()}")

@@ -10,7 +10,12 @@ neighbour is in the frame and inside (``_neighbor_columns``, :64-78), and
 the mirror pair is added (P + Pᵀ).
 
 - On a CUDA tensor :func:`glcm_matrices` launches ``csrc/glcm.cu`` or
-  raises: there is no fallback.
+  raises: there is no fallback.  One thread-block cluster counts a map,
+  each block a band of rows in 16-bit counters of the bins (min, max), and
+  the cluster writes P + Pᵀ through distributed shared memory: one device
+  launch a call, no memset, every output word written once.  The wrapper owns the launch
+  plan (:func:`glcm_plan`); the library recomputes its own and refuses any
+  other.
 - On a CPU tensor it runs :func:`glcm_matrices_reference`: one count over
   the packed key (map, angle, centre, neighbour).
 
@@ -29,6 +34,37 @@ from . import _build
 from .texture import ANGLES_2D, NG, bincount, map_offsets, shift2d
 
 _MAX_MAPS = 65535  # gridDim.y
+
+# The card's kernel (csrc/glcm.cu; its constants of the same names)
+CLUSTER = 8             # blocks a map: a thread-block cluster
+THREADS = 256
+MAX_BAND_PX = 65535     # pixels a band: its counters are 16 bits
+MAX_SMEM = 232448       # shared memory a block may have on the H100
+TRI = NG * (NG + 1) // 2            # counted bins an angle: (min, max)
+SLICE = 4 * TRI // CLUSTER          # counted bins a block sums
+RING, SLOT = 4, 128 * 5 + 16        # a warp's row slots, bytes a slot
+# the packed histogram (two 16-bit counters a word), the slice totals
+# (int32), the warps' row rings
+SMEM = 4 * TRI * 2 + SLICE * 4 + THREADS // 32 * RING * SLOT
+
+
+@functools.cache
+def glcm_plan(m: int, h: int, w: int) -> dict:
+    """The card's launch plan for [m, h, w] maps: a cluster of ``cluster``
+    blocks a map, block r counting the centres of band ``round * cluster +
+    r`` of ``band_h`` rows (the H rows split evenly over the cluster, cut
+    to at most ``MAX_BAND_PX`` pixels a band so that no 16-bit counter can
+    overflow), ``rounds`` rounds of bands to cover H; ``threads`` and
+    shared memory (``smem``: the packed histogram, the slice totals, the
+    warps' rings of rows) a block.  The library refuses
+    any other plan.  Raises ``ValueError`` for maps the kernel cannot
+    take."""
+    if m < 1 or m > _MAX_MAPS or h < 1 or w < 1 or w > MAX_BAND_PX:
+        raise ValueError(f"glcm_matrices: no plan for {m} maps of {h}x{w}")
+    band_h = min(-(-h // CLUSTER), MAX_BAND_PX // w)
+    return {"cluster": CLUSTER, "band_h": band_h,
+            "rounds": -(-h // (CLUSTER * band_h)), "threads": THREADS,
+            "smem": SMEM}
 
 
 def glcm_matrices_reference(levels: torch.Tensor,
@@ -52,7 +88,7 @@ def glcm_matrices_reference(levels: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("glcm")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.glcm_counts.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+    lib.glcm_counts.argtypes = [vp, vp, vp] + [i32] * 8 + [vp]
     lib.glcm_counts.restype = i32
     lib.glcm_error_string.argtypes = [i32]
     lib.glcm_error_string.restype = ctypes.c_char_p
@@ -90,15 +126,19 @@ def glcm_matrices(levels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if levels.device.type == "cpu":
         return glcm_matrices_reference(levels, mask)
     m, h, w = levels.shape
-    out = torch.zeros((m, 4, NG, NG), dtype=torch.float32,
-                      device=levels.device)
     if m == 0 or h * w == 0:
-        return out
+        return torch.zeros((m, 4, NG, NG), dtype=torch.float32,
+                           device=levels.device)
+    p = glcm_plan(m, h, w)
+    out = torch.empty((m, 4, NG, NG), dtype=torch.float32,
+                      device=levels.device)
     lib = _lib()
     with torch.cuda.device(levels.device):
         stream = torch.cuda.current_stream(levels.device).cuda_stream
         rc = lib.glcm_counts(levels.data_ptr(), mask.data_ptr(),
-                             out.data_ptr(), m, h, w, stream)
+                             out.data_ptr(), m, h, w, p["cluster"],
+                             p["band_h"], p["rounds"], p["threads"],
+                             p["smem"], stream)
     if rc != 0:
         raise RuntimeError("glcm_matrices launch failed: "
                            f"{lib.glcm_error_string(rc).decode()}")

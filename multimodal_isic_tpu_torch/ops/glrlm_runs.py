@@ -17,7 +17,8 @@ the same asserts (:93-99) as the JAX package.
   fallback.  The wrapper owns the launch plan (:func:`runs_plan`), the
   int16 scratch of the published ends and, per (device, stream), the
   kernel's ticket counter, epoch and ready flags; the library checks the
-  plan against its own layout and refuses any other.
+  plan against its own layout and refuses any other.  A call captured in a
+  CUDA graph has state of its own, zeroed at each replay.
 - On a CPU tensor it runs :func:`glrlm_runs_reference`, the doubling
   reverse-cummin formulation (``texture.run_starts_and_lengths``).
 
@@ -127,9 +128,18 @@ def _stream_state(device: torch.device, stream, n: int):
     ready flags (int32, at least ``n``) for one (device, stream), zeroed
     once, at the stream's first call: every launch leaves the counter at 0
     and moves the epoch on, so a flag left from an earlier launch never
-    reads as ready.  (A CUDA graph that captures a call replays its
-    launches, epochs included, only correctly if that first call came
-    before the capture.)"""
+    reads as ready.
+
+    A call inside a CUDA-graph capture gets state of its own instead, zeroed
+    by the graph at each replay (two memsets in the graph).  Shared state
+    would be wrong there: zeroes made inside a capture run only when the
+    graph replays, so the stream's eager calls, or another graph's replays
+    before this one's first, would read uninitialised tickets; and a graph
+    replay that zeroes shared state resets the epoch under flags left by
+    others."""
+    if torch.cuda.is_current_stream_capturing():
+        return (torch.zeros(2, dtype=torch.int32, device=device),
+                torch.zeros(n, dtype=torch.int32, device=device))
     key = (device.index, stream)
     state, ready = _STREAM_STATE.get(key, (None, None))
     if state is None:

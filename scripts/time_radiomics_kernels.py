@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the radiomics chunk's connected components (B7) and GLRLM run
-bookkeeping (B5) kernels of one checkout on one CUDA card.
+"""Time the radiomics chunk's GLCM counts (B4), connected components (B7)
+and GLRLM run bookkeeping (B5) kernels of one checkout on one CUDA card.
 
     python3 scripts/time_radiomics_kernels.py [ROOT] [--kernels-only]
 
@@ -14,9 +14,12 @@ rendered 450×600 lesions (``chip_smoke.radiomics_samples``) it prints:
 - for each derived image of ``chip_smoke.RAD_CHECK_TYPES`` (original, LoG
   σ 3, wavelet-HH; M = 64 maps of 450×600 each) and each kernel: whether it
   equals its plain version bit for bit, its eager time (CUDA events around
-  20 calls, median of 5 chains), its plain version's time, its bound
-  (``chip_smoke.rad_bound_ms``) and the device time of each of its launches
-  (``torch.profiler``, the mean over 3 traced calls);
+  20 calls, median of 5 chains), its plain version's time, its library
+  call's time where one PyTorch call computes the same function (B4:
+  ``torch.bincount`` over the packed keys of the counted pairs, the keys
+  built inside the timed call), its bound (``chip_smoke.rad_bound_ms``)
+  and the device time of each of its launches (``torch.profiler``, the
+  mean over 3 traced calls);
 - unless ``--kernels-only``: radiomics extraction img/s of one chunk on the
   kernel and plain paths (median of 3), peak device memory, and one profiled
   chunk on each path: busy share, launches, and the device time and launches
@@ -74,6 +77,25 @@ def launch_ms(fn, pattern, traces=3):
             for i in range(n)]
 
 
+def glcm_bincount(levels, inside):
+    """The GLCM counts as one library call, ``torch.bincount`` over the
+    packed (map, angle, centre, neighbour) keys of the counted pairs; the
+    yardstick of B4, used nowhere in the port."""
+    import torch
+    from multimodal_isic_tpu_torch.ops.texture import ANGLES_2D, NG, shift2d
+    m = levels.shape[0]
+    lv = torch.where(inside, levels, 0)
+    base = (torch.arange(m, device=levels.device) * 4 * NG * NG).view(m, 1, 1)
+    keys = []
+    for a, (dy, dx) in enumerate(ANGLES_2D):
+        nbr = shift2d(lv, -dy, -dx, 0)
+        ok = (lv > 0) & (nbr > 0)
+        keys.append((base + (a * NG + lv - 1) * NG + nbr - 1)[ok])
+    p = torch.bincount(torch.cat(keys), minlength=m * 4 * NG * NG)
+    p = p.view(m, 4, NG, NG)
+    return (p + p.transpose(-1, -2)).float()
+
+
 def chunk_kernels(fn):
     """Device ms and launches of each radiomics kernel in one traced call."""
     ev = _events(fn)[0]
@@ -98,6 +120,7 @@ def main() -> int:
     import chip_smoke as cs
     from multimodal_isic_tpu_torch.analysis.radiomics import RadiomicsExtractor
     from multimodal_isic_tpu_torch.ops import connected_components as C
+    from multimodal_isic_tpu_torch.ops import glcm as G
     from multimodal_isic_tpu_torch.ops import glrlm_runs as R
     from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
     assert Path(C.__file__).resolve().is_relative_to(root), C.__file__
@@ -111,11 +134,13 @@ def main() -> int:
     t0 = time.perf_counter()
     C._lib()
     R._lib()
+    G._lib()
     print(f"build {time.perf_counter() - t0:.1f} s")
 
     rgb, masks = cs.radiomics_samples(cs.RAD_CHUNK)
     cases = cs._rad_chunk_levels(device, rgb, masks)
-    fns = {"connected_components": (C.connected_components,
+    fns = {"glcm_matrices": (G.glcm_matrices, G.glcm_matrices_reference),
+           "connected_components": (C.connected_components,
                                     C.connected_components_reference),
            "glrlm_runs": (R.glrlm_runs, R.glrlm_runs_reference)}
     record = {}
@@ -123,22 +148,27 @@ def main() -> int:
         inside = m4 > 0
         m, h, w = levels.shape
         for name, (kern, ref) in fns.items():
-            same = torch.equal(kern(levels, inside), ref(levels, inside))
-            kt = timeit_closed(lambda: kern(levels, inside), iters=20,
+            a = (levels, m4) if name == "glcm_matrices" else (levels, inside)
+            same = torch.equal(kern(*a), ref(*a))
+            kt = timeit_closed(lambda: kern(*a), iters=20,
                                repeats=5)["median"] * 1e3
-            pt = timeit_closed(lambda: ref(levels, inside), iters=3,
+            pt = timeit_closed(lambda: ref(*a), iters=3,
                                repeats=3)["median"] * 1e3
+            lt = None
+            if name == "glcm_matrices":
+                lt = timeit_closed(lambda: glcm_bincount(levels, inside),
+                                   iters=3, repeats=3)["median"] * 1e3
             b_bytes, b_ops = cs.rad_bound_ms(name, m, h, w)
             bound = max(b_bytes, b_ops)
-            launches = launch_ms(lambda: kern(levels, inside),
-                                 KERNEL_RE[name])
+            launches = launch_ms(lambda: kern(*a), KERNEL_RE[name])
             record.setdefault(name, {})[label] = {
-                "ms": kt, "plain_ms": pt, "bound_ms": bound,
+                "ms": kt, "plain_ms": pt, "library_ms": lt, "bound_ms": bound,
                 "launches": launches}
+            lib = "" if lt is None else f", library {lt:.4f} ms"
             print(f"{name} on {label} M{m} {h}x{w}: equal to plain {same}; "
-                  f"kernel {kt:.4f} ms, plain {pt:.4f} ms, bound {bound:.4f} "
-                  f"ms ({bound / kt:.1%} of it); device ms a launch: "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in launches))
+                  f"kernel {kt:.4f} ms, plain {pt:.4f} ms{lib}, bound "
+                  f"{bound:.4f} ms ({bound / kt:.1%} of it); device ms a "
+                  "launch: " + ", ".join(f"{k} {v:.4f}" for k, v in launches))
             if not same:
                 raise AssertionError(f"{name} != plain on {label}")
 

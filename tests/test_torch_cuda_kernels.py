@@ -213,7 +213,10 @@ def _affines(cases, h, w, device):
 # pad budget, at odd and non-square sizes and the slice's 380²
 @pytest.mark.parametrize("h,w,out_hw", [(97, 131, (97, 131)), (1, 7, (3, 5)),
                                         (50, 70, (40, 90)),
-                                        (380, 380, (380, 380))])
+                                        (380, 380, (380, 380)),
+                                        (61, 203, (61, 203)),
+                                        (33, 129, (35, 131)),
+                                        (40, 90, (45, 257))])
 def test_warp_kernel_matches_plain_and_grid_sample(cuda, h, w, out_hw):
     cases = [(0.05, 0.05, 0.9, 15.0), (-0.05, -0.05, 1.1, -15.0),
              (0.0, 0.0, 1.0, 0.0), (0.45, -0.4, 0.6, 170.0),
@@ -245,6 +248,109 @@ def test_warp_kernel_apply_flags_mixed(cuda):
     assert torch.equal(out[~apply], imgs[~apply])
 
 
+@pytest.mark.parametrize("bsz", [16, 128])
+def test_warp_kernel_on_the_policy_draws_and_reruns(cuda, bsz):
+    """The fast policy's draws at bs 16 and 128 (380², C = 3): within
+    WARP_ATOL of the plain version and GRID_SAMPLE_ATOL of grid_sample, the
+    images not drawn copied exactly, the same bits on a rerun."""
+    from multimodal_isic_tpu_torch.data.augment import ssr_draw, ssr_inverse
+    g = torch.Generator(device=cuda).manual_seed(30 + bsz)
+    d = ssr_draw(g, bsz)
+    inv = ssr_inverse(380, 380, d["dx"], d["dy"], d["scale"], d["angle"])
+    imgs = torch.randint(0, 256, (bsz, 380, 380, 3), generator=g,
+                         device=cuda).float()
+    out = aw.affine_warp_batch(imgs, inv, (380, 380), apply=d["apply"])
+    again = aw.affine_warp_batch(imgs, inv, (380, 380), apply=d["apply"])
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = aw.affine_warp_batch_reference(imgs, inv, (380, 380), d["apply"])
+    torch.testing.assert_close(out, ref, atol=WARP_ATOL, rtol=0)
+    lib = aw.affine_warp_grid_sample(imgs, inv, (380, 380))
+    lib = torch.where(d["apply"][:, None, None, None], lib, imgs)
+    torch.testing.assert_close(out, lib, atol=GRID_SAMPLE_ATOL, rtol=0)
+    assert torch.equal(out[~d["apply"]], imgs[~d["apply"]])
+
+
+@pytest.mark.parametrize("h,w", [(64, 48), (37, 45), (9, 130)])
+def test_warp_kernel_at_multiples_of_the_period(cuda, h, w):
+    """Translations by whole periods (2n - 2 px), by multiples of them and
+    by just under them, both signs, identity scale: source coordinates that
+    land on, just below and far beyond the reflection's folds, where the
+    kernel's fast reflection (no fmod below one period) must agree with
+    the plain version's fmod everywhere."""
+    px, py = 2.0 * (w - 1), 2.0 * (h - 1)
+    shifts = [(px, py), (-px, 2 * py), (3 * px, -py), (px - 0.5, py - 0.25),
+              (2 * px - 2 ** -10, -(py - 2 ** -10)), (0.0, 0.0)]
+    inv = torch.tensor([[1.0, 0.0, sx, 0.0, 1.0, sy] for sx, sy in shifts],
+                       dtype=torch.float32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    imgs = torch.rand(len(shifts), h, w, 3, generator=g, device=cuda) * 255
+    out = aw.affine_warp_batch(imgs, inv, (h, w))
+    ref = aw.affine_warp_batch_reference(imgs, inv, (h, w))
+    torch.testing.assert_close(out, ref, atol=WARP_ATOL, rtol=0)
+    # whole periods and the identity are the image itself
+    for k in (0, 1, 2, 5):
+        torch.testing.assert_close(out[k], imgs[k], atol=WARP_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("c", [1, 4])
+@pytest.mark.parametrize("h,w,out_hw", [(37, 45, (37, 45)), (50, 70, (41, 93))])
+def test_warp_kernel_other_channel_counts(cuda, c, h, w, out_hw):
+    g = torch.Generator(device=cuda).manual_seed(32)
+    imgs = torch.rand(3, h, w, c, generator=g, device=cuda) * 255
+    inv = _affines([(0.05, -0.02, 1.05, 12.0), (-0.3, 0.2, 0.8, -60.0),
+                    (0.0, 0.0, 1.0, 0.0)], h, w, cuda)
+    out = aw.affine_warp_batch(imgs, inv, out_hw)
+    ref = aw.affine_warp_batch_reference(imgs, inv, out_hw)
+    torch.testing.assert_close(out, ref, atol=WARP_ATOL, rtol=0)
+    assert torch.equal(aw.affine_warp_batch(imgs, inv, out_hw), out)
+
+
+def test_warp_kernel_channel_paths_give_the_same_bits(cuda):
+    """Three channels take the kernel built for C = 3, four the one for any
+    C; the blend's roundings are explicit, so the same pixels through each,
+    at the policy's corners, a large overhang and the identity, are the
+    same bits; and a batch of another size gives the same bits a pixel."""
+    g = torch.Generator(device=cuda).manual_seed(34)
+    imgs4 = torch.rand(4, 97, 131, 4, generator=g, device=cuda) * 255
+    imgs3 = imgs4[..., :3].contiguous()
+    inv = _affines([(0.05, 0.05, 0.9, 15.0), (-0.05, -0.05, 1.1, -15.0),
+                    (0.45, -0.4, 0.6, 170.0), (0.0, 0.0, 1.0, 0.0)], 97, 131,
+                   cuda)
+    out3 = aw.affine_warp_batch(imgs3, inv, (97, 131))
+    out4 = aw.affine_warp_batch(imgs4, inv, (97, 131))
+    three = aw.affine_warp_batch(imgs3[:3].contiguous(), inv[:3], (97, 131))
+    assert torch.equal(out4[..., :3], out3)
+    assert torch.equal(three, out3[:3])
+
+
+def test_warp_kernel_apply_flags_mixed_at_a_ragged_width(cuda):
+    """37 × 45 × 3: a row is 135 floats, so the 16-byte copies and stores
+    of the strips have scalar heads and tails."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+    imgs = torch.rand(5, 37, 45, 3, generator=g, device=cuda) * 255
+    inv = _affines([(0.05, -0.02, 1.05, 12.0)] * 5, 37, 45, cuda)
+    apply = torch.tensor([False, True, False, True, True], device=cuda)
+    out = aw.affine_warp_batch(imgs, inv, (37, 45), apply=apply)
+    ref = aw.affine_warp_batch_reference(imgs, inv, (37, 45), apply=apply)
+    torch.testing.assert_close(out, ref, atol=WARP_ATOL, rtol=0)
+    assert torch.equal(out[~apply], imgs[~apply])
+
+
+@pytest.mark.parametrize("bad", ["px_lane", "threads", "blocks", "stage",
+                                 "smem"])
+def test_warp_kernel_refuses_a_plan_that_is_not_its(cuda, monkeypatch, bad):
+    imgs = torch.zeros(2, 40, 41, 3, device=cuda)
+    inv = _affines([(0, 0, 1, 0)] * 2, 40, 41, cuda)
+    plan = aw.warp_plan
+    change = {"px_lane": 1, "threads": 32, "blocks": -1, "stage": 16,
+              "smem": 16}[bad]
+    monkeypatch.setattr(aw, "warp_plan", lambda *a: {
+        **plan(*a), bad: plan(*a)[bad] + change})
+    with pytest.raises(RuntimeError, match="launch failed"):
+        aw.affine_warp_batch(imgs, inv, (40, 41))
+
+
 def test_warp_kernel_rejects_what_it_cannot_take(cuda):
     imgs = torch.zeros(2, 8, 8, 3, device=cuda)
     inv = _affines([(0, 0, 1, 0)] * 2, 8, 8, cuda)
@@ -252,6 +358,12 @@ def test_warp_kernel_rejects_what_it_cannot_take(cuda):
         aw.affine_warp_batch(imgs.transpose(1, 2), inv, (8, 8))
     with pytest.raises(ValueError):  # inv on another device
         aw.affine_warp_batch(imgs, inv.cpu(), (8, 8))
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        aw.affine_warp_batch(torch.zeros(2 * 8 * 8 * 3 + 1, device=cuda)[1:]
+                             .view(2, 8, 8, 3), inv, (8, 8))
+    with pytest.raises(ValueError):  # more channels than a row buffer holds
+        aw.affine_warp_batch(torch.zeros(2, 8, 8, aw.MAX_C + 1, device=cuda),
+                             inv, (8, 8))
 
 
 # ----------------------------------------------------- radiomics kernels
@@ -283,6 +395,80 @@ def test_glcm_kernel_matches_plain(cuda, m, h, w, vmax):
     torch.cuda.synchronize()
     assert glcm.glcm_matrices.launches == before + 1
     assert torch.equal(got, glcm.glcm_matrices_reference(lv, inside))
+
+
+# Ragged against the plan: W no multiple of 4 (cell-by-cell loads), W over
+# one 128-column strip by one, bands of one row (H < cluster), and a map of
+# three rounds of bands (2048 × 600: bands of 109 rows, 65,400 pixels).
+GLCM_SIZES = [(2, 15, 600), (1, 451, 603), (2, 33, 129), (1, 9, 130),
+              (2, 450, 1), (2, 3, 257), (1, 2048, 600)]
+
+
+@pytest.mark.parametrize("m,h,w", GLCM_SIZES)
+@pytest.mark.parametrize("vmax", [2, 64])
+def test_glcm_kernel_ragged_plans_and_rerun_bits(cuda, m, h, w, vmax):
+    g = torch.Generator(device=cuda).manual_seed(24)
+    lv, inside = _maps(g, m, h, w, vmax, cuda)
+    want = glcm.glcm_matrices_reference(lv, inside)
+    got = [glcm.glcm_matrices(lv, inside) for _ in range(3)]
+    torch.cuda.synchronize()
+    for k in range(3):
+        assert torch.equal(got[k], want), k
+
+
+def test_glcm_kernel_on_flat_maps_and_a_band_at_the_16_bit_limit(cuda):
+    """One level over the whole frame, so every pair of an angle falls in
+    one bin: 450 × 600 (bands of 57 rows), and 2040 × 257, whose bands hold
+    255 × 257 = 65,535 pixels, so the vertical angle's bin takes exactly
+    65,535 counts in each of the first seven bands."""
+    for m, h, w in ((2, 450, 600), (1, 2040, 257)):
+        assert glcm.glcm_plan(m, h, w)["band_h"] * w <= glcm.MAX_BAND_PX
+        lv = torch.full((m, h, w), 7, dtype=torch.int32, device=cuda)
+        inside = torch.ones_like(lv, dtype=torch.bool)
+        got = glcm.glcm_matrices(lv, inside)
+        assert torch.equal(got, glcm.glcm_matrices_reference(lv, inside))
+        assert int(got[0, 2, 6, 6]) == 2 * (h - 1) * w
+    p = glcm.glcm_plan(1, 2040, 257)
+    assert p["band_h"] * 257 == glcm.MAX_BAND_PX and p["rounds"] == 1
+
+
+def test_glcm_kernel_on_unaligned_maps(cuda):
+    """Contiguous maps whose levels start 4 bytes past a 16-byte boundary
+    and whose mask starts 1 byte past a 4-byte one: the cell-by-cell loads."""
+    g = torch.Generator(device=cuda).manual_seed(25)
+    lv, inside = _maps(g, 2, 45, 600, 64, cuda)
+    lv_u = torch.empty(lv.numel() + 1, dtype=torch.int32, device=cuda)[1:]
+    lv_u.copy_(lv.flatten())
+    mk_u = torch.empty(lv.numel() + 1, dtype=torch.uint8, device=cuda)[1:]
+    mk_u.copy_(inside.flatten())
+    got = glcm.glcm_matrices(lv_u.view(lv.shape), mk_u.view(lv.shape))
+    assert torch.equal(got, glcm.glcm_matrices_reference(lv, inside))
+
+
+def test_glcm_kernel_makes_one_launch_and_no_memset(cuda):
+    g = torch.Generator(device=cuda).manual_seed(26)
+    lv, inside = _maps(g, 4, 450, 600, 64, cuda)
+    before = glcm.glcm_matrices.launches
+    glcm.glcm_matrices(lv, inside)
+    assert glcm.glcm_matrices.launches == before + 1
+    names = _profile_kernels(lambda: glcm.glcm_matrices(lv, inside))
+    assert len(names) == 1 and "glcm" in names[0], names
+
+
+@pytest.mark.parametrize("bad", ["smem", "band_h", "rounds", "threads",
+                                 "cluster"])
+def test_glcm_kernel_refuses_a_plan_that_is_not_its(cuda, monkeypatch, bad):
+    """The library checks the wrapper's plan: another band height, round
+    count, cluster, thread count or shared-memory size is refused."""
+    g = torch.Generator(device=cuda).manual_seed(27)
+    lv, inside = _maps(g, 2, 45, 130, 3, cuda)
+    plan = glcm.glcm_plan
+    change = {"smem": 16, "band_h": -1, "rounds": 1, "threads": 32,
+              "cluster": 8}[bad]
+    monkeypatch.setattr(glcm, "glcm_plan", lambda *a: {
+        **plan(*a), bad: plan(*a)[bad] + change})
+    with pytest.raises(RuntimeError, match="launch failed"):
+        glcm.glcm_matrices(lv, inside)
 
 
 @pytest.mark.parametrize("m,h,w", RADIOMICS_SIZES)
@@ -501,6 +687,49 @@ def test_runs_kernel_refuses_a_plan_that_is_not_its(cuda, monkeypatch, bad):
         **plan(*a), bad: plan(*a)[bad] + change})
     with pytest.raises(RuntimeError, match="launch failed"):
         runs.glrlm_runs(lv, inside)
+
+
+def _capture(fn, stream):
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn()
+    return graph, out
+
+
+def test_radiomics_kernels_under_cuda_graph_capture(cuda):
+    """B4, B5 and B7 captured in one CUDA graph on a stream that has had no
+    eager call (so B5's stream state is first made inside the capture),
+    replayed 3 times: each replay bit for bit equal to the plain versions.
+    Then a second graph on the same stream with other maps, replayed before
+    and between the first's replays, and an eager B5 call on that stream
+    after both: B5's per-stream state must not leak between them."""
+    g = torch.Generator(device=cuda).manual_seed(28)
+    maps = [_maps(g, 3, 45, 130, v, cuda) for v in (5, 64)]
+    want = [(glcm.glcm_matrices_reference(lv, ins),
+             runs.glrlm_runs_reference(lv, ins),
+             cc.connected_components_reference(lv, ins)) for lv, ins in maps]
+    for lv, ins in maps:  # load the libraries; eager calls on another stream
+        glcm.glcm_matrices(lv, ins), runs.glrlm_runs(lv, ins)
+        cc.connected_components(lv, ins)
+    torch.cuda.synchronize()
+    fresh = torch.cuda.Stream()
+    graphs = [_capture(lambda lv=lv, ins=ins: (
+        glcm.glcm_matrices(lv, ins), runs.glrlm_runs(lv, ins),
+        cc.connected_components(lv, ins)), fresh) for lv, ins in maps]
+    for k in (1, 0, 1, 0, 0, 1):
+        graph, outs = graphs[k]
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, ref in zip(outs, want[k]):
+            assert torch.equal(got, ref), k
+    with torch.cuda.stream(fresh):
+        lv, ins = maps[1]
+        got = runs.glrlm_runs(lv, ins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[1][1])
+    graphs[0][0].replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graphs[0][1][1], want[0][1])
 
 
 # ---------------------------------------------------------------- ConvMAE
