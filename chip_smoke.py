@@ -97,7 +97,21 @@ width with random weights from a seed:
    scalar-load path; the MLP within ``fused_mlp.TOL``), the same bits on a
    rerun, the first-order stats against ``texture.firstorder_features``
    and the MLP's gradients on the card; times both against their plain
-   versions and bounds.
+   versions and bounds;
+13. the fusion CLI from files on disk: writes 192 rendered 450×600 lesions
+   (160 train, 32 test) with ``make_synthetic_isic``, runs
+   ``cli.prepare_df`` and ``cli.main`` (B3@380 full width, float32,
+   ``augment_fast``, ``device_cache`` and ``fold_bn_eval``, 2 epochs, fold
+   1) with the launch counts at 0: one warp launch a train step, 2 + 20
+   fused MBConv launches a test forward, finite losses, the metrics events,
+   and a model restored from the saved checkpoint gives the CLI's test
+   logits bit for bit; times the host decode (and holds the native decoder
+   against cv2 where it loads), the device-resident epoch and the test
+   pass; runs the CLI again for one streaming epoch (``device_cache``
+   off), checks that the streaming loader's batches on the card equal the
+   records and times a streaming epoch; checks one bs 16 train step with
+   ``backbone_remat`` 'conv' and 'block' against 'none' (loss, gradient
+   norms) with each one's peak memory; runs ``entry()``'s forward.
 
 Float32 on the card runs in full float32 here: TF32 is off for cuDNN and
 cuBLAS throughout (``torch.backends.cudnn.allow_tf32 = False``).
@@ -2373,6 +2387,336 @@ def time_firstorder_and_mlp(device, fo_inputs):
     out["fused_mlp"] = (*tot, None)
     return out
 
+# ----------------------------------------------------- 13. the fusion CLI
+
+CLI_N_TRAIN, CLI_N_TEST = 160, 32  # rendered lesions (HAM10000: 10,015)
+CLI_EPOCHS = 2
+CLI_EVENTS = ("train/epoch_loss", "train/epoch_acc", "val/epoch_loss",
+              "val/epoch_acc", "val/patience_counter")
+# the native decoder against cv2 (tests/test_native_io.py:34-36): the same
+# JPEG bitstream through two libjpeg builds
+NATIVE_MEAN_ABS, NATIVE_MAX_ABS = 1.0, 16
+REMAT_LOSS_RTOL = 1e-6   # the forward is the same ops in the same order
+# gradient norms: recomputed activations feed the same cuDNN/cuBLAS
+# backward, whose reductions may order differently run to run (PR 12's
+# card runs: 9.4e-8 at most)
+REMAT_GRAD_RTOL = 1e-5
+# BN running statistics: the first run's forward, as 'none''s
+REMAT_STATS_TOL = dict(rtol=1e-6, atol=1e-8)
+CLI_TIMED_REPS = 5  # host-clock repeats of each CLI-side rate, after a warm-up
+
+
+def cli_workspace(root: Path):
+    """192 rendered 450×600 lesions written by ``make_synthetic_isic``
+    (160 train, 32 test) under ``root`` → the config dict of the CLI run."""
+    import shutil
+    from multimodal_isic_tpu_torch.data.synthetic import make_synthetic_isic
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    dirs = make_synthetic_isic(str(root / "data"), n_train=CLI_N_TRAIN,
+                               n_test=CLI_N_TEST, image_hw=SRC_HW,
+                               seed=SEED + 30)
+    print(f"CLI: wrote {CLI_N_TRAIN} + {CLI_N_TEST} lesions of "
+          f"{SRC_HW[0]}×{SRC_HW[1]} (JPEG + PNG mask) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    params = {"patience": 10, "epochs": CLI_EPOCHS, "fold": 1,
+              "batch_size": BATCH, "backbone": "efficientnet-b3",
+              "augment_fast": True, "device_cache": True,
+              "fold_bn_eval": True}
+    return {"seed": SEED, "device": "cuda", "dir": dirs,
+            "model_path": str(root / "models"), "log_dir": str(root / "runs"),
+            "training_plan": {"modality": ["image", "radiomics", "clinical",
+                                           "artifacts"],
+                              "fusion": "concat",
+                              "fusion_level": "intermediate",
+                              "parameters": params}}
+
+
+def run_cli(root: Path, config: dict, name: str):
+    """``cli.main.main`` on ``config`` written as ``root/<name>.yml`` →
+    (its result, its metrics events, host seconds)."""
+    from multimodal_isic_tpu_torch.cli import main as cli_main
+    from multimodal_isic_tpu_torch.utils.logging import read_metrics
+    path = _write_yaml(root, name, config)
+    t0 = time.perf_counter()
+    result = cli_main.main(["--config_path", str(path)])
+    torch.cuda.synchronize()
+    return result, read_metrics(result["run_dir"]), time.perf_counter() - t0
+
+
+def _host_rates(fn, n_items, reps=CLI_TIMED_REPS):
+    """``fn`` once to warm up, then ``reps`` calls on the host clock, each
+    closed by a device sync → items/s of each call, sorted."""
+    fn()
+    rates = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates.append(n_items / (time.perf_counter() - t0))
+    return sorted(rates)
+
+
+def _spread(rates) -> str:
+    return (f"{float(np.median(rates)):.1f} img/s (median of {len(rates)}, "
+            f"{rates[0]:.1f}–{rates[-1]:.1f})")
+
+
+def _epoch_seconds(events):
+    """Host seconds of each train epoch after the first, from the run's
+    metrics stamps: the previous epoch's last event to this epoch's train
+    loss (the epoch ends in a device readback)."""
+    stamps = [e["t"] for e in events if e["name"] in ("train/epoch_loss",
+                                                      "val/patience_counter")]
+    return [b - a for a, b in zip(stamps[1::2], stamps[2::2])]
+
+
+def cli_slice(device):
+    """The fusion CLI from files on disk to the test report at B3@380 full
+    width → numbers for PERF.md."""
+    import os
+
+    import pandas as pd
+    from multimodal_isic_tpu_torch.cli import prepare_df
+    from multimodal_isic_tpu_torch.core import checkpoint
+    from multimodal_isic_tpu_torch.core.rng import RngPool, generator
+    from multimodal_isic_tpu_torch.data import augment, native_io
+    from multimodal_isic_tpu_torch.data.pipeline import (
+        RADIOMICS_PLACEHOLDER_DIM, DermRecords, DeviceDataset, DeviceLoader)
+    from multimodal_isic_tpu_torch.entry import entry
+    from multimodal_isic_tpu_torch.models.fusion import fold_fusion_params
+    from multimodal_isic_tpu_torch.ops import affine_warp as aw
+    from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
+    from multimodal_isic_tpu_torch.train import fusion as T
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    config = cli_workspace(root)
+    prepare_df.main(["--config_path", str(_write_yaml(root, "prep", config))])
+    out = {}
+
+    # the main path: counts at 0, the CLI, counts read
+    torch.cuda.reset_peak_memory_stats()
+    aw.affine_warp_batch.launches = 0
+    fd.dw_silu_pool.launches = fd.expand_dw_silu_pool.launches = 0
+    result, events, wall = run_cli(root, config, "cached")
+    launches = {"affine_warp_batch": aw.affine_warp_batch.launches,
+                "dw_silu_pool": fd.dw_silu_pool.launches,
+                "expand_dw_silu_pool": fd.expand_dw_silu_pool.launches}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    n_train = len(result["train_idx"])
+    epochs = sum(e["name"] == "train/epoch_loss" for e in events)
+    steps = epochs * (n_train // BATCH)
+    forwards = -(-CLI_N_TEST // BATCH)
+    print(f"CLI (augment_fast, device_cache, fold_bn_eval; B3@380 f32, fold "
+          f"1: {n_train} train, {len(result['val_idx'])} val, {CLI_N_TEST} "
+          f"test): {epochs} epochs in {wall:.1f} s; test accuracy "
+          f"{result['accuracy']:.5f}; launches {launches} ({steps} train "
+          f"steps, {forwards} test forwards); peak {out['peak_gib']:.2f} GiB")
+    want = {"affine_warp_batch": steps, "dw_silu_pool": 2 * forwards,
+            "expand_dw_silu_pool": 20 * forwards}
+    if epochs != CLI_EPOCHS or launches != want:
+        raise AssertionError(f"CLI launches {launches} != {want} "
+                             f"({epochs} epochs)")
+    names = {e["name"] for e in events}
+    losses = [e["value"] for e in events if e["name"].endswith("epoch_loss")]
+    if not set(CLI_EVENTS) <= names or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"CLI events {sorted(names)}, losses {losses}")
+    if not bool(torch.isfinite(result["logits"]).all()) or \
+            result["logits"].shape != (CLI_N_TEST, 7):
+        raise AssertionError("CLI test logits not finite or mis-shaped")
+    seconds = _epoch_seconds(events)
+    print(f"CLI device-resident train epoch {epochs}: {seconds[-1]:.3f} s "
+          f"(host clock, one reading) = "
+          f"{(n_train // BATCH) * BATCH / seconds[-1]:.1f} img/s")
+
+    # a fresh model restored from the checkpoint: the CLI's logits, bit for
+    # bit, and the test pass's rate
+    df_test = pd.read_pickle(config["dir"]["df_test"])
+    folded = empty_model(device, backbone="efficientnet-b3",
+                         radiomics_dim=RADIOMICS_PLACEHOLDER_DIM, fusion_strategy="concat",
+                         backbone_bn_folded=True,
+                         backbone_pallas_serving=True)
+    folded.load_state_dict(fold_fusion_params(checkpoint.restore_checkpoint(
+        result["model_path"], device=device), backbone="efficientnet-b3"))
+    step = T.make_fusion_eval_step(folded)
+    test_records = DermRecords(df_test)
+
+    def test_pass():
+        loader = DeviceLoader(test_records, BATCH,
+                              transform=augment.POLICIES["fusion_eval"],
+                              device=device)
+        return torch.cat([step(b)[1] for b in loader]).cpu()
+
+    logits = test_pass()
+    if not torch.equal(logits, result["logits"]):
+        err = float((logits - result["logits"]).abs().max())
+        raise AssertionError(f"restored checkpoint's logits differ ({err})")
+    out["test_img_s"] = _host_rates(test_pass, CLI_N_TEST)
+    print(f"checkpoint {Path(result['model_path']).name}: restored, BN "
+          f"folded, kernel path: the CLI's test logits bit for bit; test "
+          f"pass (decode + preprocess + forward, host clock) "
+          f"{_spread(out['test_img_s'])}")
+
+    # host decode: the decoder the CLI used, and native against cv2
+    df_train = pd.read_pickle(config["dir"]["df"])
+    records = DermRecords(df_train)
+    out["decoder"] = "native" if records.use_native else "cv2"
+    out["decode_img_s"] = _host_rates(
+        lambda: [records.read_image_mask(i) for i in range(32)], 32)
+    print(f"host decode ({out['decoder']}, one thread, 450×600 → 450² crop, "
+          f"32 lesions a call): {_spread(out['decode_img_s'])}")
+    if native_io.available():
+        cv = DermRecords(df_train, use_native=False)
+        t0 = time.perf_counter()
+        native_io.decode_crop_batch(df_train["image_path"].tolist()[:64],
+                                    [str(p) for p in
+                                     df_train["segmentation_path"]][:64],
+                                    (450, 450))
+        print(f"native batch decode ({os.cpu_count()} threads): "
+              f"{64 / (time.perf_counter() - t0):.1f} img/s")
+        for i in range(16):
+            (a, ma), (b, mb) = records.read_image_mask(i), cv.read_image_mask(i)
+            d = np.abs(a.astype(int) - b.astype(int))
+            if d.mean() >= NATIVE_MEAN_ABS or d.max() > NATIVE_MAX_ABS or \
+                    not np.array_equal(ma > 0, mb > 0):
+                raise AssertionError(f"native vs cv2 at {i}: mean "
+                                     f"{d.mean():.3f} max {d.max()}")
+        print("native decoder vs cv2: within tests/test_native_io.py's "
+              f"tolerances (mean < {NATIVE_MEAN_ABS}, max ≤ {NATIVE_MAX_ABS},"
+              " same mask) on 16 lesions")
+    else:
+        print("native decoder: does not load here (no libjpeg/libpng); the "
+              "CLI decoded with cv2")
+
+    # one more epoch through the streaming loader (device_cache off)
+    stream_cfg = json.loads(json.dumps(config))
+    stream_cfg["training_plan"]["parameters"].update(
+        {"device_cache": False, "epochs": 1})
+    aw.affine_warp_batch.launches = 0
+    result_s, events_s, wall_s = run_cli(root, stream_cfg, "streaming")
+    warp_s = aw.affine_warp_batch.launches
+    steps_s = -(-n_train // BATCH)
+    print(f"CLI streaming epoch (device_cache false): {wall_s:.1f} s for the "
+          f"run; warp launches {warp_s} over {steps_s} steps")
+    if warp_s != steps_s or not bool(torch.isfinite(result_s["logits"]).all()):
+        raise AssertionError(f"streaming CLI: {warp_s} warp launches")
+    train_records = DermRecords(df_train.iloc[result["train_idx"]])
+    order = np.random.RandomState(SEED + 1).permutation(len(train_records))
+    busy = torch.randn(2048, 2048, device=device)
+    n_checked = 0
+    for start, batch in zip(range(0, len(order), BATCH),
+                            DeviceLoader(train_records, BATCH, order=order,
+                                         device=device)):
+        busy = busy @ busy / 2048  # the consumer's stream is busy meanwhile
+        idx = order[start:start + BATCH]
+        want = [train_records[int(i)] for i in idx]
+        for key in ("image", "mask", "radiomics", "age", "sex", "loc",
+                    "artifacts", "target"):
+            host = torch.from_numpy(np.stack([w[key] for w in want]))
+            if not torch.equal(batch[key].cpu(), host.to(batch[key].dtype)) \
+                    or batch[key].device != device:
+                raise AssertionError(f"streamed batch at {start}: {key}")
+        n_checked += len(idx)
+    print(f"streaming loader: {n_checked} records on the card equal the "
+          "records (pinned copies on a side stream)")
+    # the CLI's two train epochs, timed over several epochs: streaming
+    # (DeviceLoader) and device-resident (DeviceDataset), the fast policy
+    model = T.build_fusion(generator(SEED + 31, device),
+                           backbone="efficientnet-b3", radiomics_dim=RADIOMICS_PLACEHOLDER_DIM,
+                           fusion_strategy="concat")
+    opt = T.fusion_optimizer(model)
+    train_step = T.make_fusion_train_step(model, opt)
+    pool = RngPool(SEED + 32, device)
+    fast = augment.POLICIES["fusion_train_fast"]
+
+    def stream_epoch():
+        loader = DeviceLoader(train_records, BATCH, order=order,
+                              transform=fast, rng_stream=pool["augment"],
+                              device=device)
+        return T.train_epoch(train_step, model, loader, pool["dropout"])
+
+    out["stream_img_s"] = _host_rates(stream_epoch, len(order))
+    print(f"streaming train epoch (DeviceLoader: {out['decoder']} decode on "
+          f"the prefetch thread, pinned copies; fast policy; bs {BATCH} "
+          f"f32; {len(order)} lesions): {_spread(out['stream_img_s'])} "
+          f"(host clock)")
+    resident = DeviceDataset.from_records(train_records, device=device,
+                                          with_masks=False)
+    resident_epoch = T.make_fusion_train_epoch(model, opt, transform=fast)
+    step_idx = resident.epoch_order(BATCH, order=order)
+    out["resident_img_s"] = _host_rates(
+        lambda: resident_epoch(resident.images, resident.masks,
+                               resident.meta, step_idx,
+                               pool["augment"].next(),
+                               pool["dropout"].next()), step_idx.size)
+    print(f"device-resident train epoch (DeviceDataset, fast policy, bs "
+          f"{BATCH} f32, {len(step_idx)} steps): "
+          f"{_spread(out['resident_img_s'])} (host clock)")
+
+    # remat: one bs 16 train step, 'conv' and 'block' against 'none':
+    # loss, gradient norms, BN running statistics, the generator's state
+    staged = next(iter(DeviceLoader(train_records, BATCH, device=device)))
+    batch = dict(staged)
+    batch["image"] = augment.preprocess_eval_batch(staged["image"], (IMG, IMG))
+    runs = {}
+    del model, train_step, opt, resident, resident_epoch
+    torch.cuda.empty_cache()
+    for remat in ("none", "conv", "block"):
+        m = T.build_fusion(generator(SEED + 33, device),
+                           backbone="efficientnet-b3", radiomics_dim=RADIOMICS_PLACEHOLDER_DIM,
+                           fusion_strategy="concat", backbone_remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        rng = generator(SEED + 34, device)
+        logits = m(**T._inputs(batch), rng=rng)
+        loss = T.cross_entropy(logits, batch["target"])
+        loss.backward()
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        norms = torch.stack([p.grad.norm() for p in m.parameters()]).cpu()
+        stats = torch.cat([b.flatten() for k, b in m.named_buffers()
+                           if "running_" in k]).cpu()
+        runs[remat] = (float(loss.detach()), norms, peak, stats,
+                       rng.get_state())
+        del m, logits, loss
+        torch.cuda.empty_cache()
+    for remat in ("conv", "block"):
+        loss, norms, peak, stats, rng_state = runs[remat]
+        base = runs["none"]
+        rel = float(((norms - base[1]).abs() / base[1].clamp(min=1e-12)).max())
+        stats_err = float((stats - base[3]).abs().max())
+        stats_ok = torch.allclose(stats, base[3], **REMAT_STATS_TOL)
+        same_rng = torch.equal(rng_state, base[4])
+        print(f"remat {remat!r}: loss {loss:.6f} (none {base[0]:.6f}), "
+              f"gradient norms max rel diff {rel:.2e} (≤ {REMAT_GRAD_RTOL}), "
+              f"{len(stats)} BN running statistics max abs diff "
+              f"{stats_err:.2e} ({REMAT_STATS_TOL}), generator state "
+              f"{'equal' if same_rng else 'DIFFERENT'}; step peak "
+              f"{peak:.2f} GiB above the weights (none {base[2]:.2f})")
+        if not math.isclose(loss, base[0], rel_tol=REMAT_LOSS_RTOL) \
+                or rel > REMAT_GRAD_RTOL or not stats_ok \
+                or not same_rng:
+            raise AssertionError(f"remat {remat} differs from none")
+    out["remat_peak_gib"] = {k: v[2] for k, v in runs.items()}
+
+    # entry(): the program bench measures
+    forward, (model, inputs) = entry(device)
+    logits = forward(model, inputs)
+    if logits.shape != (2, 7) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("entry() forward")
+    print(f"entry(): bf16 B3 fusion forward of 2 uint8 450² requests → "
+          f"{tuple(logits.shape)} finite logits")
+    return out
+
+
+def _write_yaml(root: Path, name: str, config: dict) -> Path:
+    import yaml
+    path = root / f"{name}.yml"
+    path.write_text(yaml.safe_dump(config))
+    return path
+
+
 def to_device_batch(reqs, device, sl=slice(None)):
     return {k: torch.from_numpy(np.ascontiguousarray(v[sl])).to(device)
             for k, v in reqs.items()}
@@ -2616,6 +2960,20 @@ def main() -> int:
     fo_times = time_firstorder_and_mlp(device, fo_inputs)
     print(f"phase 12 (first order, bare MLP) {time.perf_counter() - t12:.1f} "
           f"s; wall {time.perf_counter() - t_start:.1f} s")
+    del fo_inputs
+    torch.cuda.empty_cache()
+
+    # 13. the fusion CLI from files on disk: prepare_df → main (device
+    # cache, fast policy, folded test pass), the restored checkpoint, a
+    # streaming epoch, remat, entry()
+    t13 = time.perf_counter()
+    cli = cli_slice(device)
+    print(f"phase 13 (fusion CLI) {time.perf_counter() - t13:.1f} s: decoder "
+          f"{cli['decoder']} {_spread(cli['decode_img_s'])}; "
+          f"device-resident epoch {_spread(cli['resident_img_s'])}; "
+          f"streaming epoch {_spread(cli['stream_img_s'])}; test pass "
+          f"{_spread(cli['test_img_s'])}; CLI peak {cli['peak_gib']:.2f} "
+          f"GiB; wall {time.perf_counter() - t_start:.1f} s")
 
     med, bound, b_bytes, b_ops = warp_times[BATCH]
     totals["affine_warp_batch"] = [med["kernel"], med["plain"], bound, b_bytes,

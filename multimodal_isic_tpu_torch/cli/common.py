@@ -1,0 +1,56 @@
+"""Shared CLI plumbing: the ``--config_path`` flag and the config's
+``device`` key.
+
+Counterpart of ``multimodal_isic_tpu/cli/common.py`` (:13-35).  The device
+rule: ``''``, ``'tpu'`` (the JAX default) and ``'cuda'`` mean ``cuda:0``;
+``'cuda:N'`` that card; ``'cpu'`` the CPU.  A CUDA device asked for on a
+machine without one raises; nothing falls back to the CPU.  The CLI runs
+float32 in full float32: TF32 is switched off for cuBLAS and cuDNN, the
+setting of every card check of the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Sequence
+
+import torch
+
+from ..core.config import Config, load_config
+
+
+def resolve_device(name: str) -> torch.device:
+    """The config's ``device`` key → a ``torch.device`` (module docstring)."""
+    key = (name or "").strip().lower()
+    if key == "cpu":
+        return torch.device("cpu")
+    if key in ("", "tpu", "cuda"):
+        key = "cuda:0"
+    if not key.startswith("cuda:") or not key[5:].isdigit():
+        raise ValueError(f"device {name!r}: expected '', 'tpu', 'cuda', "
+                         "'cuda:N' or 'cpu'")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"device {name!r} asks for a CUDA card and this "
+                           "machine has none; set device: cpu to run on the "
+                           "CPU")
+    index = int(key[5:])
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"device {name!r}: this machine has "
+                           f"{torch.cuda.device_count()} CUDA device(s)")
+    return torch.device("cuda", index)
+
+
+def parse_config(argv: Optional[Sequence[str]] = None,
+                 default_path: str = "config.yml") -> Config:
+    """Parse ``--config_path``, load the config, check its device key and
+    switch TF32 off."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config_path", type=str, default=default_path,
+                        help="path to .yml config file specifying "
+                             "datasets/training params")
+    args, _ = parser.parse_known_args(argv)
+    config = load_config(args.config_path)
+    resolve_device(config.get("device", ""))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return config

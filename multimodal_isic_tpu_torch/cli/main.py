@@ -1,0 +1,236 @@
+"""CLI: multimodal fusion training (reference ``main.py``, the primary entry).
+
+    python -m multimodal_isic_tpu_torch.cli.main --config_path config.yml
+
+Counterpart of the single-process branch of ``multimodal_isic_tpu/cli/
+main.py`` (:38-250), step for step: manifests → ``StratifiedKFold(10)``
+fold select → ``DermRecords`` / ``DeviceLoader`` at the global batch of 16
+→ ``MultiModalFusionNet(modality, fusion_level, fusion)`` → SGD(1e-3, wd
+1e-4) + cross-entropy → epochs with early stopping on the validation loss →
+the best weights saved under a fresh hex name → a fresh model restored from
+that checkpoint → the test report.
+
+- ``device_cache`` stages the train and validation splits on the card
+  (``DeviceDataset``) and runs device-resident epochs; otherwise batches
+  stream through ``DeviceLoader`` with the policy of ``augment_fast``.
+- Image-less modality subsets read metadata-only records (no decode).
+- ``radiomics_dim`` is the width the records give (the 102-wide placeholder
+  where the radiomics pickles are absent), the width the JAX model infers.
+- ``fold_bn_eval`` runs the final test pass on the BN-folded net with the
+  fused MBConv kernels (``backbone_pallas_serving``), the faster path on the
+  H100 (``PERF.md`` §5).
+- Multi-process runs wait for the parallel port: they raise ``ValueError``.
+
+``main`` returns the run's results: the checkpoint path, the run directory,
+the fold's indices, the test accuracy, report and logits.
+"""
+
+from __future__ import annotations
+
+import os
+import uuid
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..core import checkpoint as ckpt
+from ..core.early_stopping import EarlyStopping
+from ..core.rng import RngPool
+from ..core.splits import StratifiedKFold
+from ..data import augment
+from ..data.pipeline import DermRecords, DeviceDataset, DeviceLoader
+from ..models.fusion import MultiModalFusionNet, fold_fusion_params
+from ..train.fusion import (build_fusion, evaluate_test, fusion_optimizer,
+                            log_train_epoch, make_fusion_eval_epoch,
+                            make_fusion_eval_step, make_fusion_train_epoch,
+                            make_fusion_train_step, padded_epoch_order,
+                            train_epoch, validate_epoch)
+from ..utils.logging import RunLogger
+from .common import parse_config, resolve_device
+
+# eval-side image size of the device-resident validation epoch (the
+# policies bake 380² in; tests patch this beside their small policies)
+FUSED_EVAL_HW = (380, 380)
+GLOBAL_BS = 16  # reference batch size (main.py:120-126)
+MULTIPROCESS_ENV = ("ISIC_COORDINATOR", "ISIC_NUM_PROCESSES",
+                    "ISIC_PROCESS_ID")
+
+
+def check_single_process(config) -> None:
+    """Raise ``ValueError`` for a multi-process or multi-card run."""
+    env = [k for k in MULTIPROCESS_ENV if os.environ.get(k)]
+    if env:
+        raise ValueError(f"multi-process runs ({', '.join(env)} set) are not "
+                         "ported yet: run one process on one card")
+    mesh = config["mesh"]
+    if mesh["data"] not in (-1, 1) or mesh["model"] != 1:
+        raise ValueError(f"mesh {mesh.to_dict()}: the port runs on one card "
+                         "(data -1 or 1, model 1)")
+
+
+def _empty_model(device: torch.device, **cfg) -> MultiModalFusionNet:
+    """A fusion net laid out on ``device`` without initialising it (a state
+    dict is loaded next)."""
+    with torch.device("meta"):
+        model = MultiModalFusionNet(**cfg)
+    return model.to_empty(device=device)
+
+
+def main(argv=None) -> Dict[str, Any]:
+    config = parse_config(argv)
+    check_single_process(config)
+    logger = RunLogger(config.get("log_dir", "runs"), config=config.to_dict())
+    try:
+        return _run(config, resolve_device(config["device"]), logger)
+    finally:
+        logger.close()
+
+
+def _run(config, device: torch.device, logger: RunLogger) -> Dict[str, Any]:
+    import pandas as pd  # local: host-only dependency
+
+    plan = config["training_plan"]
+    params_cfg = plan["parameters"]
+    seed = config["seed"]
+    pool = RngPool(seed, device)
+
+    df_train_val = pd.read_pickle(config["dir"]["df"])
+    df_test = pd.read_pickle(config["dir"]["df_test"])
+
+    radiomics = radiomics_test = None
+    rad_path = config["dir"].get("radiomics_red")
+    if rad_path and os.path.exists(rad_path):
+        radiomics = pd.read_pickle(rad_path).values
+        radiomics_test = pd.read_pickle(
+            config["dir"]["radiomics_test_red"]).values
+
+    kf = StratifiedKFold(n_splits=10, shuffle=True, random_state=seed)
+    folds = list(kf.split(df_train_val, df_train_val["dx"]))
+    current_fold = params_cfg["fold"]
+    train_idx, val_idx = folds[current_fold]
+    df_train = df_train_val.iloc[train_idx]
+    df_val = df_train_val.iloc[val_idx]
+    print(f"Train set size: {len(df_train)}")
+    print(f"Val set size: {len(df_val)}")
+    print(f"Test set size: {len(df_test)}")
+
+    # image-less modality subsets never read the image branch: no decode,
+    # no augmentation (metadata-only records)
+    with_image = "image" in plan["modality"]
+    train_policy = ("fusion_train_fast" if params_cfg["augment_fast"]
+                    else "fusion_train")
+    train_tf = augment.POLICIES[train_policy] if with_image else None
+    eval_tf = augment.POLICIES["fusion_eval"] if with_image else None
+
+    def records(df, rad, idx=None):
+        r = rad[idx] if (rad is not None and idx is not None) else rad
+        return DermRecords(df, radiomics=r, with_image=with_image)
+
+    train_records = records(df_train, radiomics, train_idx)
+    val_records = records(df_val, radiomics, val_idx)
+    print(f"decoder: {'native' if train_records.use_native else 'cv2'}")
+    val_loader = DeviceLoader(val_records, GLOBAL_BS, transform=eval_tf,
+                              device=device)
+    test_loader = DeviceLoader(records(df_test, radiomics_test), GLOBAL_BS,
+                               transform=eval_tf, device=device)
+
+    model_cfg = dict(modality=plan["modality"],
+                     fusion_level=plan["fusion_level"],
+                     fusion_strategy=plan["fusion"],
+                     radiomics_dim=train_records.radiomics_dim,
+                     backbone=params_cfg["backbone"])
+    logger.assign("group_tags", list(plan["modality"]) + [plan["fusion"]])
+    logger.assign("train/current_fold", current_fold)
+
+    model = build_fusion(pool["init"].next(), **model_cfg,
+                         backbone_remat=params_cfg["backbone_remat"])
+    optimizer = fusion_optimizer(model, lr=1e-3, weight_decay=1e-4)
+    train_step = make_fusion_train_step(model, optimizer)
+    eval_step = make_fusion_eval_step(model)
+    early_stopping = EarlyStopping(patience=params_cfg["patience"],
+                                   log=logger.log)
+
+    # device_cache: stage the train and validation crops on the card once,
+    # then run every epoch as device work (gather → augment → step)
+    train_device = val_device = None
+    if params_cfg["device_cache"] and with_image:
+        # the fast policy never reads masks: none are staged for it
+        train_device = DeviceDataset.from_records(
+            train_records, device=device,
+            with_masks=not params_cfg["augment_fast"])
+        fused_epoch = make_fusion_train_epoch(model, optimizer,
+                                              transform=train_tf)
+        val_device = DeviceDataset.from_records(val_records, device=device,
+                                                with_masks=False)
+        fused_val = make_fusion_eval_epoch(model, out_hw=FUSED_EVAL_HW)
+        val_order, val_valid = padded_epoch_order(len(val_device), GLOBAL_BS)
+        staged = train_device.images.nbytes + val_device.images.nbytes
+        print(f"device_cache: {len(train_device)} train + {len(val_device)} "
+              f"val crops staged on {device} ({staged / 1e9:.2f} GB)")
+
+    for epoch in range(1, params_cfg["epochs"] + 1):
+        order = np.random.RandomState(seed + epoch).permutation(len(df_train))
+        if train_device is not None:
+            step_idx = train_device.epoch_order(GLOBAL_BS, order=order)
+            loss, ncorr = fused_epoch(train_device.images, train_device.masks,
+                                      train_device.meta, step_idx,
+                                      pool["augment"].next(),
+                                      pool["dropout"].next())
+            log_train_epoch(logger, model, epoch, loss, ncorr / step_idx.size)
+        else:
+            train_loader = DeviceLoader(
+                train_records, GLOBAL_BS, order=order, transform=train_tf,
+                rng_stream=pool["augment"] if with_image else None,
+                device=device)
+            train_epoch(train_step, model, train_loader, pool["dropout"],
+                        logger=logger, epoch=epoch)
+        if val_device is not None:
+            val_loss, vcorr = fused_val(val_device.images, val_device.meta,
+                                        val_order, val_valid)
+            val_acc = vcorr / len(val_device)
+            logger.log("val/epoch_loss", val_loss, step=epoch)
+            logger.log("val/epoch_acc", val_acc, step=epoch)
+            logger.print(f"Epoch {epoch} - Val Loss: {val_loss:.4f}, "
+                         f"Accuracy: {val_acc:.4f}")
+        else:
+            val_loss = validate_epoch(eval_step, val_loader, logger=logger,
+                                      epoch=epoch)
+        if early_stopping(val_loss, model.state_dict()):
+            print(f"Early stopping at epoch {epoch}")
+            break
+
+    best = early_stopping.get_best_params() or model.state_dict()
+    model_name = os.path.join(config["model_path"], uuid.uuid4().hex)
+    os.makedirs(config["model_path"], exist_ok=True)
+    ckpt.save_checkpoint(model_name, best)
+    logger.assign("best_model_path", model_name)
+
+    restored = ckpt.restore_checkpoint(model_name, device=device)
+    if params_cfg["fold_bn_eval"] and with_image:
+        # serving path: backbone BN folded into the conv weights, the
+        # stride-1 MBConv blocks on the fused kernels
+        test_model = _empty_model(device, **model_cfg,
+                                  backbone_bn_folded=True,
+                                  backbone_pallas_serving=True)
+        test_model.load_state_dict(fold_fusion_params(
+            restored, backbone=params_cfg["backbone"]))
+    else:
+        test_model = _empty_model(device, **model_cfg)
+        test_model.load_state_dict(restored)
+    test_step = make_fusion_eval_step(test_model)
+    logits = []
+
+    def keep_logits(batch):
+        loss, out = test_step(batch)
+        logits.append(out)
+        return loss, out
+
+    acc, report = evaluate_test(keep_logits, test_loader, logger=logger)
+    return {"model_path": model_name, "run_dir": logger.dir,
+            "train_idx": train_idx, "val_idx": val_idx, "accuracy": acc,
+            "report": report, "logits": torch.cat(logits).cpu()}
+
+
+if __name__ == "__main__":
+    main()

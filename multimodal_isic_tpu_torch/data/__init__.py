@@ -1,1 +1,2 @@
-"""Data: eval preprocessing (torch), crops and synthetic samples (numpy)."""
+"""Data: synthetic datasets, manifests, decoding, records and loaders
+(host), preprocessing and augmentation (torch)."""

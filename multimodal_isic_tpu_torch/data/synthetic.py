@@ -1,12 +1,17 @@
-"""Synthetic ISIC-like samples (numpy).
+"""Synthetic ISIC-like dataset (numpy; cv2 and pandas to write it).
 
-Counterpart of ``multimodal_isic_tpu/data/synthetic.py:19-47``: the class and
-metadata vocabularies and the per-sample renderer.  Writing a dataset to disk
-(``make_synthetic_isic``, cv2 and pandas) comes with the host-data port.
+Counterpart of ``multimodal_isic_tpu/data/synthetic.py``: the class and
+metadata vocabularies, the per-sample renderer (:19-47) and
+``make_synthetic_isic`` (:50-115), which writes the reference's on-disk
+contract (a metadata CSV, ``<image_id>.jpg`` photos and
+``<image_id>_segmentation.png`` masks, label 255) with the same draws, so a
+seed gives the same files in both packages.  cv2 and pandas are imported
+inside it.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -44,3 +49,73 @@ def _render_sample(rng: np.random.RandomState, h: int, w: int,
     img = np.where(ellipse[..., None], lesion_color[None, None, :] + texture,
                    img)
     return np.clip(img, 0, 255).astype(np.uint8), mask
+
+
+def make_synthetic_isic(
+    root: str,
+    n_train: int = 32,
+    n_test: int = 16,
+    image_hw: Tuple[int, int] = (450, 600),
+    seed: int = 0,
+    missing_fraction: float = 0.1,
+) -> dict:
+    """Write a synthetic dataset under ``root`` → a config ``dir`` dict
+    pointing at it (the keys of the reference ``config.yml``)."""
+    import cv2  # local: host-only dependencies
+    import pandas as pd
+
+    rng = np.random.RandomState(seed)
+    h, w = image_hw
+    layout = {}
+    loc_pool = LOC_VALUES  # the test split draws only train-seen values
+    for split, n in [("train", n_train), ("test", n_test)]:
+        img_dir = os.path.join(root, split, "images")
+        seg_dir = os.path.join(root, split, "segmentations")
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(seg_dir, exist_ok=True)
+
+        rows = []
+        for i in range(n):
+            dx_idx = (i % len(DX_CLASSES) if i < 2 * len(DX_CLASSES)
+                      else rng.randint(len(DX_CLASSES)))
+            image_id = f"SYN{split}_{i:07d}"
+            img, mask = _render_sample(rng, h, w, dx_idx)
+            cv2.imwrite(os.path.join(img_dir, f"{image_id}.jpg"),
+                        cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+            cv2.imwrite(os.path.join(seg_dir, f"{image_id}_segmentation.png"),
+                        mask)
+
+            age = float(rng.choice([np.nan] * int(missing_fraction * 10)
+                                   + list(range(20, 90, 5))))
+            rows.append({
+                "lesion_id": f"LES_{i:07d}",
+                "image_id": image_id,
+                "dx": DX_CLASSES[dx_idx],
+                "dx_type": "histo",
+                "age": age,
+                "sex": rng.choice(SEX_VALUES[:2] + [np.nan],
+                                  p=[0.45, 0.45, 0.1]),
+                "localization": rng.choice(loc_pool),
+                **{c: int(rng.rand() < 0.2) for c in ARTIFACT_COLS},
+            })
+        csv_path = os.path.join(root, split, "metadata.csv")
+        frame = pd.DataFrame(rows)
+        frame.to_csv(csv_path, index=False)
+        layout[split] = {"csv": csv_path, "img": img_dir, "seg": seg_dir}
+        if split == "train":
+            loc_pool = sorted(frame["localization"].unique())
+
+    return {
+        "csv": layout["train"]["csv"],
+        "img": layout["train"]["img"],
+        "seg": layout["train"]["seg"],
+        "df": os.path.join(root, "train", "df.pkl"),
+        "radiomics": os.path.join(root, "train", "radiomics.pkl"),
+        "radiomics_red": os.path.join(root, "train", "radiomics_red.pkl"),
+        "csv_test": layout["test"]["csv"],
+        "img_test": layout["test"]["img"],
+        "seg_test": layout["test"]["seg"],
+        "df_test": os.path.join(root, "test", "df.pkl"),
+        "radiomics_test": os.path.join(root, "test", "radiomics.pkl"),
+        "radiomics_test_red": os.path.join(root, "test", "radiomics_red.pkl"),
+    }

@@ -6,8 +6,16 @@ compound width/depth scaling, drop-connect (rates ``drop_connect_rate·i/n``,
 :346) and feature dropout (``PARAMS[name][3]``, :358) in training, the
 BN-folded serving variant (``bn_folded``, weights from
 :func:`fold_batchnorm`) and the fused serving kernels (``pallas_serving``,
-the JAX flag's name kept).  ``remat`` and ``conv_fission`` have no
-counterpart here.
+the JAX flag's name kept).  ``remat`` (``'none' | 'conv' | 'block'``,
+JAX :268) recomputes each MBConv block in the backward pass with
+``torch.utils.checkpoint``: ``'block'`` keeps only the block's input,
+``'conv'`` also keeps the outputs of its convolutions and matmuls and
+recomputes the BatchNorm, SiLU and SE chains (a selective-checkpoint
+policy).  A recomputed block draws its drop-connect mask again from the
+generator state it began with, and its BatchNorms leave the running
+statistics alone, so loss, gradients and statistics equal ``'none'``'s; the
+state dict is unchanged.  ``conv_fission`` has no counterpart: it places an
+XLA fusion barrier, which has no PyTorch meaning.
 
 Train and eval follow ``nn.Module.train()``/``eval()``.  BatchNorm in train
 mode normalizes with the biased batch variance and moves the running
@@ -41,6 +49,7 @@ plain PyTorch.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -48,6 +57,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops import fused_dwconv
 from ..ops.depthwise import conv2d_nhwc, depthwise_conv2d
@@ -121,15 +132,22 @@ class BatchNorm(nn.Module):
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
         self.eps = eps
+        # inside a remat block: the update goes to copies, kept in
+        # ``updated`` until the block writes the first run's back
+        self.on_copies = False
+        self.updated: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean,
-                         self.running_var, self.weight, self.bias,
-                         self.training, self.MOMENTUM, self.eps)
+        mean, var = self.running_mean, self.running_var
+        if self.on_copies:
+            mean, var = mean.clone(), var.clone()
+            self.updated = (mean, var)
+        y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var, self.weight,
+                         self.bias, self.training, self.MOMENTUM, self.eps)
         return y.permute(0, 2, 3, 1)
 
 
@@ -227,6 +245,61 @@ class MBConv(nn.Module):
         return x
 
 
+REMAT = ("none", "conv", "block")
+_SAVED_BY_CONV_REMAT = (torch.ops.aten.convolution.default,
+                        torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat='conv'``."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_CONV_REMAT
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_block(block: nn.Module, x: torch.Tensor,
+                rng: Optional[torch.Generator], remat: str) -> torch.Tensor:
+    """``block(x, rng)`` in train mode, recomputed in the backward pass
+    (``remat`` 'conv' or 'block').  Every run of the block, the recompute
+    too, draws from a copy of ``rng`` at the state it had on entry, and its
+    BatchNorms update copies of their running statistics; after the first
+    run ``rng`` moves on as if the block had drawn from it and the copies
+    that run updated become the running statistics.  The recompute makes
+    the same ops as the first run, as the selective checkpoint requires."""
+    start = rng.get_state() if rng is not None else None
+    bns = [m for m in block.modules() if isinstance(m, BatchNorm)]
+    runs = []
+
+    def run(h):
+        first = not runs
+        runs.append(first)
+        g = None
+        if start is not None:
+            g = torch.Generator(device=rng.device)
+            g.set_state(start)
+        for m in bns:
+            m.on_copies = True
+        try:
+            out = block(h, g)
+        finally:
+            for m in bns:
+                m.on_copies = False
+        if first and g is not None:
+            rng.set_state(g.get_state())
+        return out
+
+    ctx = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_conv_outputs)}
+        if remat == "conv" else {})
+    out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
+                     **ctx)
+    with torch.no_grad():
+        for m in bns:
+            m.running_mean.copy_(m.updated[0])
+            m.running_var.copy_(m.updated[1])
+            m.updated = None
+    return out
+
+
 class EfficientNet(nn.Module):
     """Feature extractor: NHWC image [B, H, W, 3] → pooled features
     [B, feature_dim] in float32, feature dropout applied in train mode."""
@@ -234,11 +307,15 @@ class EfficientNet(nn.Module):
     def __init__(self, model_name: str = "efficientnet-b3",
                  drop_connect_rate: float = 0.2, feature_dropout: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 bn_folded: bool = False, pallas_serving: bool = False):
+                 bn_folded: bool = False, pallas_serving: bool = False,
+                 remat: str = "none"):
         super().__init__()
         if pallas_serving and not bn_folded:
             raise ValueError("pallas_serving requires bn_folded=True")
+        if remat not in REMAT:
+            raise ValueError(f"remat must be none|conv|block, got {remat!r}")
         self.model_name, self.dtype, self.bn_folded = model_name, dtype, bn_folded
+        self.remat = remat
         width, _, _, dropout_rate = PARAMS[model_name]
         self.dropout_rate = dropout_rate if feature_dropout else 0.0
         bn = (lambda c: nn.Identity()) if bn_folded else BatchNorm
@@ -266,8 +343,10 @@ class EfficientNet(nn.Module):
         x = conv2d_nhwc(x, self.stem_conv.weight.to(x.dtype),
                         _cast(self.stem_conv.bias, x.dtype), stride=2)
         x = F.silu(self.stem_bn(x))
+        remat = self.training and torch.is_grad_enabled() and \
+            self.remat != "none"
         for block in self.blocks:
-            x = block(x, rng)
+            x = remat_block(block, x, rng, self.remat) if remat else block(x, rng)
         x = F.silu(self.head_bn(_conv1x1(x, self.head_conv)))
         x = x.mean(dim=(1, 2)).float()
         return dropout(x, self.dropout_rate, self.training, rng)

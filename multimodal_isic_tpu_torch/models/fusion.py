@@ -94,7 +94,9 @@ class MultiModalFusionNet(nn.Module):
                  num_classes: int = 7, backbone: str = "efficientnet-b3",
                  dtype: torch.dtype = torch.float32,
                  backbone_bn_folded: bool = False,
-                 backbone_pallas_serving: bool = False):
+                 backbone_pallas_serving: bool = False,
+                 backbone_remat: str = "none"):
+        """``backbone_remat``: ``EfficientNet.remat``."""
         super().__init__()
         if fusion_level not in ("intermediate", "late"):
             raise ValueError(fusion_level)
@@ -109,7 +111,7 @@ class MultiModalFusionNet(nn.Module):
         if "image" in self.modality:
             self.image_model = EfficientNet(
                 backbone, dtype=dtype, bn_folded=backbone_bn_folded,
-                pallas_serving=backbone_pallas_serving)
+                pallas_serving=backbone_pallas_serving, remat=backbone_remat)
             if backbone_bn_folded:  # inference-only: no master copy needed
                 self.image_model.to(dtype)
             self.image_proj = ProjMlp(feature_dim(backbone), 256, SHARED_DIM,

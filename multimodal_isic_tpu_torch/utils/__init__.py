@@ -1,1 +1,1 @@
-"""Utilities: timing on the card."""
+"""Utilities: timing on the card, local run logging."""
