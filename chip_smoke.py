@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, radiomics and ConvMAE
-slices, and of the first-order and bare-MLP entry points, on one CUDA card.
+slices, of the first-order and bare-MLP entry points and of the CLIs, on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -111,7 +112,28 @@ width with random weights from a seed:
    off), checks that the streaming loader's batches on the card equal the
    records and times a streaming epoch; checks one bs 16 train step with
    ``backbone_remat`` 'conv' and 'block' against 'none' (loss, gradient
-   norms) with each one's peak memory; runs ``entry()``'s forward.
+   norms) with each one's peak memory; runs ``entry()``'s forward;
+14. the radiomics and MAE chains from phase 13's files on disk through
+   their CLIs, the launch counts at 0 before each: ``cli.extract_radiomics``
+   (450×600, 4,872 features, chunks of 16: 13 launches of each radiomics
+   kernel a chunk; finite frames with the four channel suffixes; 16 rows
+   within ``RAD_TOL`` of the plain path on the same decoded images; the
+   decoder and extraction img/s) → ``cli.reduce_dim`` (FISTA on the card;
+   the stage counts and frames equal ``reduce_features`` on the CPU, a
+   selection tie at the threshold said so; the FISTA grid's device time) →
+   ``cli.main`` for one epoch (the radiomics MLP at the reduced width, the
+   restored checkpoint's logits bit for bit); ``cli.train_ae``
+   (ConvViT-Base, decoder 512 × 8, bs 16 f32, mask 0.75, norm-pix, flash
+   attention, 2 epochs) on the loader path and with ``device_cache`` (4
+   fused LN-MLP launches a forward, 4 backward a step, 19 attention
+   launches a full forward and 11 an encoder forward; finite losses; the
+   uuid checkpoint and ``mae_ckpt/``; the hook's moments and PNGs, or each
+   plotting call's ``ImportError`` where matplotlib is missing; the
+   restored ``mae_ckpt/`` gives the saved validation loss bit for bit), one
+   step on the CLI's weights against the plain path, then
+   ``cli.save_latent`` on its checkpoint (bf16, bs 128, PCA: the six frames
+   with JAX's columns, 4 fused launches a forward, latents within
+   ``LATENT_TOL`` of the encoder with every flag off, img/s).
 
 Float32 on the card runs in full float32 here: TF32 is off for cuDNN and
 cuBLAS throughout (``torch.backends.cudnn.allow_tf32 = False``).
@@ -1423,7 +1445,7 @@ def latent_path(device, crops, masks, targets):
     PCA(0.90), on the usual kernel path (fused LN-MLP), then the plain path
     and the flash + front configuration on the same weights and images."""
     from multimodal_isic_tpu_torch.analysis.latent_pipeline import (
-        extract_latent_bundle, extract_latents)
+        extract_latent_bundle, extract_latent_tables)
     from multimodal_isic_tpu_torch.analysis.latents import concat_patch_moments
     from multimodal_isic_tpu_torch.data.augment import mae_eval_batch
     models = mae_models(device, SEED + 22, with_decoder=False,
@@ -1444,7 +1466,7 @@ def latent_path(device, crops, masks, targets):
     torch.cuda.synchronize()
     _reset_mae_launches()
     t0 = time.perf_counter()
-    tr, te, b_tr, b_te, pca = extract_latents(
+    tr, te, b_tr, b_te, pca = extract_latent_tables(
         models["kernel"], loader(0, half), loader(half, len(crops)),
         pca_enabled=True)
     moments = concat_patch_moments(torch.cat([b_tr.latents, b_te.latents]))
@@ -2493,7 +2515,7 @@ def cli_slice(device):
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
     config = cli_workspace(root)
     prepare_df.main(["--config_path", str(_write_yaml(root, "prep", config))])
-    out = {}
+    out = {"root": root, "config": config}
 
     # the main path: counts at 0, the CLI, counts read
     torch.cuda.reset_peak_memory_stats()
@@ -2709,6 +2731,577 @@ def cli_slice(device):
           f"{tuple(logits.shape)} finite logits")
     return out
 
+# -------------------------------------------- 14. the radiomics and MAE CLIs
+
+MAE_CLI_EPOCHS = 2
+MAE_CLI_VAL_BS = 64   # cli/train_ae.py VAL_BS (JAX cli/train_ae.py:81-89)
+HOST_REPS = 3         # host-clock repeats of the phase's rates
+# R2 holds the L1 selection's float32 FISTA against the same steps in float64
+# on the CPU, on its 160 × 4,008 problem, at two fixed limits (readings in
+# PERF.md).  After FISTA_CHECK_STEPS steps: the largest |W − W64| / max |W64|
+# a float32 solve may show; a TF32 solve must read above it.  After the 300
+# steps of the selection, where any perturbation has grown: the largest
+# |importance − float64's| (importance = mean over the classes of |W|) a
+# float32 solve may show; a feature kept on the card and not on the CPU, or
+# the reverse, passes only where both its importances lie within it of the
+# 1e-5 threshold.
+FISTA_CHECK_STEPS = 40
+FISTA_STEP_LIMIT = 3e-5
+FISTA_IMPORTANCE_LIMIT = 3e-4
+# the six frames' columns, as the JAX package writes them
+# (analysis/latent_pipeline.py:118-157)
+LATENT_COLUMNS = {
+    "patch_level_latents": ["image_path", "segmentation_path", "target",
+                            "patch_id",
+                            "patch_latent", "patch_in_mask",
+                            "patch_latent_pca"],
+    "latent_pooled": ["image_path", "segmentation_path", "target",
+                      "latent_pooled_max", "latent_pooled_mean",
+                      "ids_restore"],
+    "latent_raw": ["image_path", "segmentation_path", "target", "latent",
+                   "ids_restore", "lesion_mask_patches"],
+}
+
+
+def _quiet(fn):
+    """``fn()`` with its standard output kept → (result, printed lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    return result, buf.getvalue().splitlines()
+
+
+def _fista_problem(norm, labels):
+    """R2's L1 problem as ``lasso_importance`` poses it: X [N, D], the ±1
+    one-vs-rest labels [K, N], the balanced sample weights [N] (numpy
+    float64)."""
+    classes = np.unique(labels)
+    counts = np.bincount(labels)
+    return (norm.values, np.stack([np.where(labels == c, 1.0, -1.0)
+                                   for c in classes]),
+            len(labels) / (len(classes) * counts[labels]))
+
+
+def _tf32_products():
+    """A context in which float32 matrix products may use TF32."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def tf32():
+        prec = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(prec)
+    return tf32()
+
+
+def _importances(fn):
+    """``fn()`` with every ``reduce.lasso_importance`` call it makes
+    recorded → (result, [(importance, per-class C), ...])."""
+    from multimodal_isic_tpu_torch.analysis import reduce as RD
+    calls, kept = [], RD.lasso_importance
+
+    def record(*args, **kwargs):
+        calls.append(kept(*args, **kwargs))
+        return calls[-1]
+    RD.lasso_importance = record
+    try:
+        return fn(), calls
+    finally:
+        RD.lasso_importance = kept
+
+
+def _fista_witness(device, norm, labels, c_k):
+    """The selection's FISTA on the card against the same steps in float64
+    on the CPU → (the largest |W − W64| / max |W64| after
+    ``FISTA_CHECK_STEPS`` steps at the card's per-class C ``c_k`` and on the
+    20-C grid, for the card in float32 and with TF32 products; the largest
+    |importance − float64's| after 300 steps at ``c_k``, for the card's and
+    the CPU's float32 and for float64 on X × (1 + 1e-7·N(0, 1)), float32's
+    rounding of X)."""
+    from multimodal_isic_tpu_torch.analysis import reduce as RD
+    x, Y, sw = _fista_problem(norm, labels)
+
+    def solve(dev, dtype, C, iters, X=x):
+        def t(a):
+            return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
+                                   device=dev)
+        W, _ = RD._fista_l1_logistic(t(X), t(Y), t(sw), t(C), iters)
+        return W.double().cpu().numpy()
+
+    def solve_tf32(C, iters):
+        kept = RD.full_float32
+        RD.full_float32 = _tf32_products
+        try:
+            return solve(device, torch.float32, C, iters)
+        finally:
+            RD.full_float32 = kept
+
+    steps = {}
+    for name, C in (("final", c_k), ("grid", np.logspace(-2, 1, 20)[:, None])):
+        ref = solve("cpu", torch.float64, C, FISTA_CHECK_STEPS)
+        for run, W in (("card f32", solve(device, torch.float32, C,
+                                          FISTA_CHECK_STEPS)),
+                       ("card TF32", solve_tf32(C, FISTA_CHECK_STEPS))):
+            steps[run, name] = float(np.abs(W - ref).max()
+                                     / np.abs(ref).max())
+    imp64 = np.abs(solve("cpu", torch.float64, c_k, 300)).mean(-2)
+    noisy = x * (1 + 1e-7 * np.random.RandomState(SEED).randn(*x.shape))
+    runs = {"card f32": solve(device, torch.float32, c_k, 300),
+            "CPU f32": solve("cpu", torch.float32, c_k, 300),
+            "float64 on X x (1 + 1e-7 N(0,1))": solve("cpu", torch.float64,
+                                                      c_k, 300, noisy)}
+    final = {run: float(np.abs(np.abs(W).mean(-2) - imp64).max())
+             for run, W in runs.items()}
+    return steps, final
+
+
+def radiomics_chain(device, root, config):
+    """Chain R from the files on disk: ``cli.extract_radiomics`` (450×600,
+    4,872 features, chunks of 16, the kernel path) → ``cli.reduce_dim``
+    (FISTA on the card) → ``cli.main`` for one epoch at the reduced width
+    → numbers for PERF.md."""
+    import pandas as pd
+    from multimodal_isic_tpu_torch.analysis import radiomics as RA
+    from multimodal_isic_tpu_torch.analysis import reduce as RD
+    from multimodal_isic_tpu_torch.cli import extract_radiomics as XR
+    from multimodal_isic_tpu_torch.cli import reduce_dim as RDC
+    from multimodal_isic_tpu_torch.core import checkpoint
+    from multimodal_isic_tpu_torch.data import augment, native_io
+    from multimodal_isic_tpu_torch.data.pipeline import (
+        RADIOMICS_PLACEHOLDER_DIM, DermRecords, DeviceLoader)
+    from multimodal_isic_tpu_torch.models.fusion import fold_fusion_params
+    from multimodal_isic_tpu_torch.ops import affine_warp as aw
+    from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
+    from multimodal_isic_tpu_torch.train import fusion as T
+    out = {}
+    fns = _rad_fns()
+    path = _write_yaml(root, "radiomics", config)
+    df_train = pd.read_pickle(config["dir"]["df"])
+    df_test = pd.read_pickle(config["dir"]["df_test"])
+
+    # R1. extraction: counts at 0, the CLI, counts read
+    for name in RAD_KERNELS:
+        fns[name][0].launches = 0
+    t0 = time.perf_counter()
+    (train, test), lines = _quiet(lambda: XR.main(["--config_path",
+                                                   str(path)]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fns[name][0].launches for name in RAD_KERNELS}
+    n_chunks = -(-len(train) // XR.CHUNK) + -(-len(test) // XR.CHUNK)
+    out["decoder"] = "native" if native_io.available() else "cv2"
+    print("\n".join("  cli.extract_radiomics: " + ln for ln in lines))
+    print(f"R1 cli.extract_radiomics ({out['decoder']} decoder): train "
+          f"{train.shape}, test {test.shape} in {wall:.1f} s; launches "
+          f"{launches} ({n_chunks} chunks of {XR.CHUNK})")
+    suffixes = tuple(RA.CHANNEL_SUFFIX.values())
+    for frame, n in ((train, CLI_N_TRAIN), (test, CLI_N_TEST)):
+        per = [sum(c.endswith(s) for c in frame.columns) for s in suffixes]
+        if frame.shape != (n, 4872) or per != [1218] * 4 or \
+                not np.isfinite(frame.values).all():
+            raise AssertionError(f"radiomics frame {frame.shape}, columns a "
+                                 f"suffix {per}, NaN "
+                                 f"{int(np.isnan(frame.values).sum())}")
+    if any(v != 13 * n_chunks for v in launches.values()):
+        raise AssertionError(f"launches {launches} != 13 x {n_chunks}")
+    records = df_train.to_dict(orient="records")
+    plain = RA.RadiomicsExtractor(use_kernels=False, device=device)
+    rgb, masks = plain._decode_chunk(records[:RAD_CHUNK], SRC_HW,
+                                     native_io.available())
+    _, p_vals = RA.features_to_frame(plain.extract_channels_batch(rgb, masks))
+    k_vals = train.values[:RAD_CHUNK]
+    same_nan = np.array_equal(np.isnan(k_vals), np.isnan(p_vals))
+    ok = ~np.isnan(p_vals)
+    err = _feature_err(k_vals[ok], p_vals[ok])
+    n_bad = int((err > RAD_TOL["atol"]
+                 + RAD_TOL["rtol"] * np.abs(p_vals[ok])).sum())
+    print(f"R1 the CLI's first {RAD_CHUNK} rows vs the plain path on the "
+          f"same decoded images: max_abs_err {err.max():.3e}, {n_bad} values "
+          f"outside {RAD_TOL}, NaNs at the same places: {same_nan}")
+    if n_bad or not same_nan:
+        raise AssertionError("CLI radiomics vs plain path differ")
+    kernel_ex = RA.RadiomicsExtractor(device=device)
+    out["extract_img_s"] = _host_rates(
+        lambda: kernel_ex._batched_extraction(records[:2 * RAD_CHUNK]),
+        2 * RAD_CHUNK, HOST_REPS)
+    print(f"R1 extraction from disk ({out['decoder']} decode on a host "
+          f"thread, kernel path, {2 * RAD_CHUNK} lesions a call): "
+          f"{_spread(out['extract_img_s'])} (host clock)")
+
+    # R2. reduction: the CLI on the card against reduce_features on the CPU
+    t0 = time.perf_counter()
+    ((red_tr, red_te), lines), [(imp_k, c_k)] = _importances(
+        lambda: _quiet(lambda: RDC.main(["--config_path", str(path)])))
+    out["reduce_s"] = time.perf_counter() - t0
+    print("\n".join("  cli.reduce_dim: " + ln for ln in lines))
+    rad_tr = pd.read_pickle(config["dir"]["radiomics"])
+    rad_te = pd.read_pickle(config["dir"]["radiomics_test"])
+    y = df_train["dx"]
+    cpu_log = []
+    (cpu_tr, cpu_te), [(imp_c, c_c)] = _importances(
+        lambda: RD.reduce_features(rad_tr, rad_te, y, seed=SEED,
+                                   log=cpu_log.append, device="cpu"))
+    same = (lines[:len(cpu_log)] == cpu_log
+            and list(red_tr.columns) == list(cpu_tr.columns)
+            and list(red_te.columns) == list(cpu_te.columns))
+    print(f"R2 cli.reduce_dim {out['reduce_s']:.1f} s (host clock): "
+          f"{rad_tr.shape[1]} → {red_tr.shape[1]} features; the card's "
+          f"stage counts and columns equal reduce_features on the CPU: "
+          f"{same}")
+    norm, _ = RD.normalize_features(*RD.filter_low_variance(rad_tr, rad_te))
+    labels = y.values.astype(int)
+    t0 = time.perf_counter()
+    steps, final = _fista_witness(device, norm, labels, c_k)
+    thr, lim = RD.SELECT_THRESHOLD, FISTA_IMPORTANCE_LIMIT
+    print(f"R2 FISTA against the same steps in float64 on the CPU "
+          f"({norm.shape[0]} rows x {norm.shape[1]} features; "
+          f"{time.perf_counter() - t0:.1f} s): after {FISTA_CHECK_STEPS} "
+          f"steps, largest |W - W64| / max |W64| at the card's per-class C "
+          f"/ on the 20-C grid: " + ", ".join(
+              f"{run} {steps[run, 'final']:.3e} / {steps[run, 'grid']:.3e}"
+              for run in ("card f32", "card TF32"))
+          + f" (fixed limit {FISTA_STEP_LIMIT:.1e}); after 300 steps at that "
+          f"C, largest |importance - float64|: " + ", ".join(
+              f"{run} {v:.3e}" for run, v in final.items())
+          + f" (fixed limit {lim:.1e}); "
+          f"{int((np.abs(imp_k - thr) <= lim).sum())} of {len(imp_k)} "
+          f"card importances within it of the {thr:.0e} threshold")
+    f32_steps = max(steps["card f32", name] for name in ("final", "grid"))
+    if f32_steps > FISTA_STEP_LIMIT:
+        raise AssertionError(f"the card's float32 FISTA is {f32_steps:.3e} "
+                             f"from float64's after {FISTA_CHECK_STEPS} "
+                             f"steps, above {FISTA_STEP_LIMIT:.1e}")
+    tf32_steps = min(steps["card TF32", name] for name in ("final", "grid"))
+    if tf32_steps <= FISTA_STEP_LIMIT:
+        raise AssertionError(f"the limit {FISTA_STEP_LIMIT:.1e} passes a "
+                             f"TF32 solve ({tf32_steps:.3e})")
+    f32_err = max(final["card f32"], final["CPU f32"])
+    if f32_err > lim:
+        raise AssertionError(f"a float32 FISTA solve's importance is "
+                             f"{f32_err:.3e} from float64's, above {lim:.1e}")
+    if same:
+        for got, want in ((red_tr, cpu_tr), (red_te, cpu_te)):
+            if not np.array_equal(got.values, want.values):
+                raise AssertionError("reduced frames differ from the CPU's")
+        print("R2 reduced frames: the CPU's values bit for bit (the host "
+              "stages are float64 numpy; only the selection ran on the card)")
+    else:
+        flips = np.flatnonzero((imp_k > thr) != (imp_c > thr))
+        near = (np.abs(imp_k[flips] - thr) <= lim) & \
+            (np.abs(imp_c[flips] - thr) <= lim)
+        print(f"R2 the selection differs from the CPU's: features kept on "
+              f"one side only "
+              f"{[(norm.columns[i], float(imp_k[i]), float(imp_c[i])) for i in flips]}"
+              f" (importance card, CPU); per-class C equal: "
+              f"{np.array_equal(c_k, c_c)}; each flip within {lim:.1e} of "
+              f"the threshold on both sides: {near.tolist()}")
+        if not (len(flips) and near.all() and np.array_equal(c_k, c_c)):
+            raise AssertionError("reduce_dim on the card differs from the CPU")
+        for got, want in ((red_tr, cpu_tr), (red_te, cpu_te)):
+            common = [c for c in got.columns if c in want.columns]
+            if not np.array_equal(got[common].values, want[common].values):
+                raise AssertionError("reduced frames differ on common columns")
+        print(f"R2 NOTE: float32 ties at the selection threshold, not a "
+              f"fault: the frames differ by those columns ({red_tr.shape[1]} "
+              f"on the card, {cpu_tr.shape[1]} on the CPU) and hold the "
+              f"CPU's values bit for bit on the columns they share")
+    x, ys, sw = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                 for a in _fista_problem(norm, labels))
+    grid = torch.as_tensor(np.logspace(-2, 1, 20), dtype=torch.float32,
+                           device=device)[:, None]
+    profile_steps(lambda: RD._fista_l1_logistic(x, ys, sw, grid),
+                  f"FISTA grid (20 C x {ys.shape[0]} classes, "
+                  f"{x.shape[0]} rows x {x.shape[1]} features, 300 steps; "
+                  f"reduce_dim makes 5 such calls and 1 with a C a class)",
+                  steps=1)
+
+    # R3. the fusion CLI at the reduced width, one epoch
+    cfg = json.loads(json.dumps(config))
+    cfg["training_plan"]["parameters"]["epochs"] = 1
+    aw.affine_warp_batch.launches = 0
+    fd.dw_silu_pool.launches = fd.expand_dw_silu_pool.launches = 0
+    result, events, wall = run_cli(root, cfg, "reduced")
+    launches_m = {"affine_warp_batch": aw.affine_warp_batch.launches,
+                  "dw_silu_pool": fd.dw_silu_pool.launches,
+                  "expand_dw_silu_pool": fd.expand_dw_silu_pool.launches}
+    state = checkpoint.restore_checkpoint(result["model_path"], device=device)
+    width = state["radiomics_mlp.fc1.weight"].shape[1]
+    forwards = -(-CLI_N_TEST // BATCH)
+    steps = len(result["train_idx"]) // BATCH
+    print(f"R3 cli.main with the reduced pickles (B3@380 f32, 1 epoch): "
+          f"{wall:.1f} s; radiomics MLP input width {width} (reduced "
+          f"{red_tr.shape[1]}, placeholder {RADIOMICS_PLACEHOLDER_DIM}); "
+          f"launches {launches_m}")
+    if width != red_tr.shape[1] or width == RADIOMICS_PLACEHOLDER_DIM:
+        raise AssertionError(f"radiomics MLP width {width}")
+    want = {"affine_warp_batch": steps, "dw_silu_pool": 2 * forwards,
+            "expand_dw_silu_pool": 20 * forwards}
+    if launches_m != want:
+        raise AssertionError(f"R3 launches {launches_m} != {want}")
+    folded = empty_model(device, backbone="efficientnet-b3",
+                         radiomics_dim=width, fusion_strategy="concat",
+                         backbone_bn_folded=True,
+                         backbone_pallas_serving=True)
+    folded.load_state_dict(fold_fusion_params(state,
+                                              backbone="efficientnet-b3"))
+    step = T.make_fusion_eval_step(folded)
+    loader = DeviceLoader(DermRecords(df_test, radiomics=red_te.values),
+                          BATCH, transform=augment.POLICIES["fusion_eval"],
+                          device=device)
+    logits = torch.cat([step(b)[1] for b in loader]).cpu()
+    if not torch.equal(logits, result["logits"]):
+        raise AssertionError("R3 restored checkpoint's logits differ")
+    print("R3 checkpoint restored, BN folded, kernel path, the reduced test "
+          "rows: the CLI's test logits bit for bit")
+    return out
+
+
+def _hook_calls_without_matplotlib(viz):
+    """Where matplotlib is not installed, each plotting call of the MAE
+    CLI's epoch hook must raise ``ImportError`` (as the JAX hook's would):
+    wrap them to check that and record it → the list of records."""
+    raised = []
+
+    def guard(fn):
+        def call(*args, **kwargs):
+            try:
+                fn(*args, **kwargs)
+            except ImportError as e:
+                raised.append(f"{fn.__name__}: {e}")
+                return None
+            raise AssertionError(f"{fn.__name__} ran without matplotlib")
+        return call
+
+    viz.latent_scatter = guard(viz.latent_scatter)
+    viz.reconstruction_grid = guard(viz.reconstruction_grid)
+    return raised
+
+
+def _restored_val_loss(device, run, model_cfg, val_records, cached):
+    """A fresh model restored from the run's ``mae_ckpt/`` → the validation
+    loss on the saved epoch's draws, as the CLI computed it."""
+    from multimodal_isic_tpu_torch.core.checkpoint import restore_train_state
+    from multimodal_isic_tpu_torch.core.rng import RngPool
+    from multimodal_isic_tpu_torch.data.augment import POLICIES
+    from multimodal_isic_tpu_torch.data.pipeline import (DeviceDataset,
+                                                         DeviceLoader)
+    from multimodal_isic_tpu_torch.models.convmae import ConvMAE
+    from multimodal_isic_tpu_torch.train import mae as M
+    with torch.device("meta"):
+        fresh = ConvMAE(**model_cfg)
+    fresh.to_empty(device=device)
+    meta = restore_train_state(run["checkpoint"], fresh)
+    gen = RngPool(SEED, device)["eval"].at(meta["epoch"])
+    if len(val_records) > MAE_CLI_VAL_BS:
+        raise ValueError("one validation batch expected")
+    if cached:
+        val = DeviceDataset.from_records(val_records, device=device)
+        order = np.arange(len(val))[None]
+        loss = M.make_mae_eval_epoch(fresh, MASK_RATIO, POLICIES["mae_eval"])(
+            val.images, val.masks, order, gen) * order.size / len(val)
+    else:
+        step = M.make_mae_eval_step(fresh, MASK_RATIO)
+        batches = list(DeviceLoader(val_records, MAE_CLI_VAL_BS,
+                                    transform=POLICIES["mae_eval"],
+                                    device=device))
+        loss = M._weighted_mean([step(b["image"], gen) for b in batches],
+                                [len(b["image"]) for b in batches])
+    return loss, meta
+
+
+def mae_chain(device, root, config):
+    """Chain M from the files on disk: ``cli.train_ae`` (ConvViT-Base,
+    decoder 512 x 8, bs 16 f32, mask 0.75, norm-pix, flash attention, 2
+    epochs) on the loader path and with ``device_cache`` → ``cli.save_latent``
+    (encoder only, bs 128 bf16, PCA) on its checkpoint → numbers for
+    PERF.md."""
+    import contextlib
+    import importlib.util
+    import pandas as pd
+    from multimodal_isic_tpu_torch.analysis.latent_pipeline import (
+        extract_latent_bundle)
+    from multimodal_isic_tpu_torch.cli import save_latent as SL
+    from multimodal_isic_tpu_torch.cli import train_ae as TA
+    from multimodal_isic_tpu_torch.core import checkpoint
+    from multimodal_isic_tpu_torch.core.config import config_from_dict
+    from multimodal_isic_tpu_torch.core.rng import generator
+    from multimodal_isic_tpu_torch.data.augment import POLICIES
+    from multimodal_isic_tpu_torch.data.pipeline import (DermRecords,
+                                                         DeviceLoader)
+    from multimodal_isic_tpu_torch.models.convmae import ConvMAE
+    from multimodal_isic_tpu_torch.utils import viz
+    out = {}
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    raised = [] if has_mpl else _hook_calls_without_matplotlib(viz)
+    df_train_val = pd.read_pickle(config["dir"]["df"])
+    params = {"epochs": MAE_CLI_EPOCHS, "batch_size": VAL_BATCH,
+              "model_size": "base", "norm_pix_loss": True,
+              "masking_ratio": MASK_RATIO, "eval_masking_ratio": MASK_RATIO,
+              "include_lesion_mask": False, "use_flash_attention": True}
+    model_cfg = dict(norm_pix_loss=True, use_flash_attention=True,
+                     use_fused_mlp=True)
+    runs = {}
+    for cached in (False, True):
+        name = "mae_cached" if cached else "mae_loader"
+        cfg = json.loads(json.dumps(config))
+        cfg["model_path"] = str(root / name / "models")
+        cfg["log_dir"] = str(root / name / "runs")
+        cfg["training_plan"]["parameters"].update(params,
+                                                  device_cache=cached)
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = TA.main(["--config_path", str(_write_yaml(root, name, cfg))])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _all_launches()
+        n_val = len(run["val_idx"])
+        steps = MAE_CLI_EPOCHS * (len(run["train_idx"]) // VAL_BATCH)
+        val_fw = MAE_CLI_EPOCHS * -(-n_val // MAE_CLI_VAL_BS)
+        hooks = MAE_CLI_EPOCHS  # epoch 0 (every 10th) and the last
+        enc_fw = hooks * -(-n_val // MAE_CLI_VAL_BS)
+        grids = hooks * min(4, n_val, MAE_CLI_VAL_BS)
+        want = {"fused_ln_mlp": 4 * (steps + val_fw + enc_fw + grids),
+                "flash_attention": 19 * (steps + val_fw + grids) + 11 * enc_fw,
+                "fused_front": 0, "fused_ln_mlp_backward": 4 * steps}
+        losses = [v for h in run["history"]
+                  for v in (h["train_loss"], h["val_loss"])]
+        print(f"M1 cli.train_ae ({'device_cache' if cached else 'loader'} "
+              f"path; ConvViT-Base, bs {VAL_BATCH} f32, flash attention): "
+              f"{wall:.1f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB; {len(run['train_idx'])} train / {n_val} val; losses "
+              f"{[round(v, 5) for v in losses]}; launches {launches} ({steps} "
+              f"train steps, {val_fw} validation forwards, {enc_fw} encoder "
+              f"and {grids} reconstruction forwards in the hook)")
+        if launches != want:
+            raise AssertionError(f"M1 launches {launches} != {want}")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError("M1 non-finite MAE loss")
+        models = Path(cfg["model_path"])
+        arts = Path(run["run_dir"]) / "artifacts"
+        names = sorted(p.name for p in arts.iterdir())
+        if not (Path(run["model_path"]) / checkpoint.MANIFEST).exists() \
+                or not (models / "mae_ckpt").is_dir():
+            raise AssertionError(f"M1 checkpoints: {sorted(models.iterdir())}")
+        for epoch in range(MAE_CLI_EPOCHS):
+            with np.load(arts / f"latent_moments_ep{epoch}.npz") as z:
+                if z["feats"].shape != (n_val, 6 * 768) or \
+                        not np.isfinite(z["feats"]).all():
+                    raise AssertionError(f"M1 moments {z['feats'].shape}")
+            pngs = {f"latent_scatter_ep{epoch}.png"} | {
+                f"image_comparison_{i + 1}_ep{epoch}.png"
+                for i in range(min(4, n_val))}
+            if has_mpl and not pngs <= set(names):
+                raise AssertionError(f"M1 artifacts {names}")
+        print(f"M1 artifacts: {names}; checkpoint "
+              f"{Path(run['model_path']).name} and mae_ckpt/ written")
+        val_records = DermRecords(df_train_val.iloc[run["val_idx"]])
+        loss, meta = _restored_val_loss(device, run, model_cfg, val_records,
+                                        cached)
+        print(f"M1 mae_ckpt/ (epoch {meta['epoch']}) restored into a fresh "
+              f"model: validation loss {loss!r} on the saved epoch's draws "
+              f"vs saved {meta['val_loss']!r} (must be equal)")
+        if loss != meta["val_loss"]:
+            raise AssertionError("M1 restored validation loss differs")
+        runs[name] = run
+    if not has_mpl:
+        print(f"M1 NOTE: matplotlib is not installed on this machine; the "
+              f"hook's {len(raised)} plotting calls each raised ImportError "
+              f"as the JAX hook's would (first: {raised[0]}); no PNG written")
+
+    # the CLI's trained weights: one train step's gradients, its kernels
+    # (B9, B10, B11) against the plain path
+    best = checkpoint.restore_checkpoint(runs["mae_cached"]["model_path"],
+                                         device=device)
+    models = {}
+    for key, flags in (("kernel", model_cfg), ("plain",
+                                               dict(norm_pix_loss=True))):
+        with torch.device("meta"):
+            models[key] = ConvMAE(**flags)
+        models[key].to_empty(device=device).load_state_dict(best)
+    val_records = DermRecords(
+        df_train_val.iloc[runs["mae_cached"]["val_idx"]])
+    imgs = next(iter(DeviceLoader(val_records, VAL_BATCH,
+                                  transform=POLICIES["mae_eval"],
+                                  device=device)))["image"]
+    draws = models["kernel"].masking(len(imgs), MASK_RATIO,
+                                     generator(SEED + 40, device))
+    _reset_all_launches()
+    _step_grads(models, imgs, draws)
+    launches = _all_launches()
+    _check_grads(f"M1 the CLI's best weights, one step at bs {len(imgs)} "
+                 f"f32 (fused LN-MLP, flash attention)", models, launches)
+    want = {"fused_ln_mlp": 4, "flash_attention": 19, "fused_front": 0,
+            "fused_ln_mlp_backward": 4}
+    if launches != want:
+        raise AssertionError(f"M1 gradient step launches {launches}")
+    del models, best
+
+    # M2. latents from the checkpoint: bf16, bs 128, PCA
+    cfg = json.loads(json.dumps(config))
+    cfg.update(latent_dtype="bfloat16", pca=True)
+    cfg["training_plan"]["parameters"].update(model_size="base")
+    path = _write_yaml(root, "latents", cfg)
+    model_path = runs["mae_cached"]["model_path"]
+    n_all = len(df_train_val) + CLI_N_TEST
+    _reset_all_launches()
+    with contextlib.chdir(root):
+        t0 = time.perf_counter()
+        frames, lines = _quiet(lambda: SL.main([
+            "--config_path", str(path), "--model_name", model_path]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _all_launches()
+        written = sorted(p.name for p in (root / "dataframes_latents")
+                         .iterdir())
+    print("\n".join("  cli.save_latent: " + ln for ln in lines))
+    forwards = -(-len(df_train_val) // SL.LATENT_BS) + \
+        -(-CLI_N_TEST // SL.LATENT_BS)
+    print(f"M2 cli.save_latent (bf16, bs {SL.LATENT_BS}, PCA) on checkpoint "
+          f"{Path(model_path).name}: {n_all} lesions in {wall:.1f} s; "
+          f"launches {launches} over {forwards} forwards; wrote {written}")
+    want = {"fused_ln_mlp": 4 * forwards, "flash_attention": 0,
+            "fused_front": 0, "fused_ln_mlp_backward": 0}
+    if launches != want:
+        raise AssertionError(f"M2 launches {launches} != {want}")
+    if written != sorted(f"{n}.pkl" for n in SL.FRAME_NAMES):
+        raise AssertionError(f"M2 pickles {written}")
+    for name, frame in zip(SL.FRAME_NAMES, frames):
+        if list(frame.columns) != LATENT_COLUMNS[name.rsplit("_", 2)[0]]:
+            raise AssertionError(f"M2 {name} columns {list(frame.columns)}")
+    with torch.device("meta"):
+        plain = ConvMAE(with_decoder=False, dtype=torch.bfloat16)
+    plain.to_empty(device=device)
+    plain.load_state_dict(checkpoint.restore_partial(model_path,
+                                                     plain.state_dict()))
+    df_test = pd.read_pickle(config["dir"]["df_test"])
+    want_lat = torch.cat([extract_latent_bundle(plain, DeviceLoader(
+        DermRecords(df), SL.LATENT_BS, transform=POLICIES["mae_eval"],
+        device=device)).latents for df in (df_train_val, df_test)])
+    got_lat = torch.from_numpy(np.concatenate([
+        np.stack(frames[4]["latent"].values),
+        np.stack(frames[5]["latent"].values)])).to(device)
+    mx, rel = _latent_err(got_lat, want_lat)
+    print(f"M2 the CLI's latents vs the same encoder with every kernel flag "
+          f"off: max_abs_err {mx:.4f}, relative RMS {rel:.5f} (tolerance "
+          f"{LATENT_TOL}); finite {bool(torch.isfinite(got_lat).all())}")
+    if mx > LATENT_TOL["max_abs"] or rel > LATENT_TOL["rel_rms"] or \
+            not bool(torch.isfinite(got_lat).all()):
+        raise AssertionError("M2 latents out of tolerance")
+    typed = config_from_dict(cfg)
+    out["latent_img_s"] = _host_rates(
+        lambda: _quiet(lambda: SL.extract_latents(typed, model_path)), n_all,
+        HOST_REPS)
+    print(f"M2 save_latent's extraction from disk (decode, bs "
+          f"{SL.LATENT_BS} bf16 encoder, tables, PCA, frames; {n_all} "
+          f"lesions a call): {_spread(out['latent_img_s'])} (host clock)")
+    return out
+
 
 def _write_yaml(root: Path, name: str, config: dict) -> Path:
     import yaml
@@ -2722,12 +3315,11 @@ def to_device_batch(reqs, device, sl=slice(None)):
             for k, v in reqs.items()}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on a GPU",
-              file=sys.stderr)
-        return 1
-    from multimodal_isic_tpu_torch.data.augment import preprocess_eval_batch
+def prepare() -> torch.device:
+    """Phases 1 and 2: float32 products in full float32 (no TF32), the
+    card's name and power limit printed, and every kernel library built,
+    one ``nvcc`` per source, all started together → the card.  A phase run
+    alone starts with this (README)."""
     from multimodal_isic_tpu_torch.ops import _build
     from multimodal_isic_tpu_torch.ops import affine_warp as aw
     from multimodal_isic_tpu_torch.ops import attention
@@ -2735,16 +3327,11 @@ def main() -> int:
     from multimodal_isic_tpu_torch.ops import fused_convblock, fused_mlp
     from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
     from multimodal_isic_tpu_torch.ops import glcm, glrlm_runs, histogram
-    from multimodal_isic_tpu_torch.train.fusion import (evaluate_test,
-                                                        make_fusion_eval_step)
-    from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
 
     # float32 in full float32 (no TF32), for the plain versions, the
     # comparisons and the float32 training
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = torch.device("cuda", 0)
-    t_start = time.perf_counter()
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2773,6 +3360,22 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "bytes stack" in line or "Compiling" in line:
                 print("  ptxas:", line.strip())
+    return torch.device("cuda", 0)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    from multimodal_isic_tpu_torch.data.augment import preprocess_eval_batch
+    from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
+    from multimodal_isic_tpu_torch.train.fusion import (evaluate_test,
+                                                        make_fusion_eval_step)
+    from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
+
+    t_start = time.perf_counter()
+    device = prepare()
 
     # 3. fused kernels vs plain at every serving geometry, bs 16 and 128
     worst_err = check_kernels(device)
@@ -2974,6 +3577,19 @@ def main() -> int:
           f"streaming epoch {_spread(cli['stream_img_s'])}; test pass "
           f"{_spread(cli['test_img_s'])}; CLI peak {cli['peak_gib']:.2f} "
           f"GiB; wall {time.perf_counter() - t_start:.1f} s")
+
+    # 14. the radiomics and MAE chains from phase 13's files on disk through
+    # their CLIs: extract_radiomics → reduce_dim → main, train_ae →
+    # save_latent
+    t14 = time.perf_counter()
+    rad_cli = radiomics_chain(device, cli["root"], cli["config"])
+    mae_cli = mae_chain(device, cli["root"], cli["config"])
+    print(f"phase 14 (radiomics and MAE CLIs) {time.perf_counter() - t14:.1f}"
+          f" s: decoder {rad_cli['decoder']}; extraction from disk "
+          f"{_spread(rad_cli['extract_img_s'])}; reduce_dim "
+          f"{rad_cli['reduce_s']:.1f} s; save_latent "
+          f"{_spread(mae_cli['latent_img_s'])}; wall "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     med, bound, b_bytes, b_ops = warp_times[BATCH]
     totals["affine_warp_batch"] = [med["kernel"], med["plain"], bound, b_bytes,

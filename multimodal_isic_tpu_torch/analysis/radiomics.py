@@ -19,14 +19,26 @@ The extraction computes in full float32 whatever the global TF32 flags say
 (:func:`full_float32`).  ``use_kernels`` routes GLCM, the GLRLM runs and
 histogram, and GLSZM's connected components through the kernel wrappers (on
 a CUDA tensor, the hand-written kernels); off, the plain PyTorch versions
-run instead.  Reading images and masks from disk (cv2), the pandas frames,
-the CLI and mesh-sharded extraction are not ported here.
+run instead.
+
+The path-based APIs (JAX :166-343) read images and masks from disk:
+``extract_radiomics`` one image with cv2, ``parallell_extraction`` a list
+of records in chunks of ``batch``, and ``extract_radiomics_frames`` both
+manifests into the suffixed pandas frames.  A chunk is decoded with the
+native full-frame decoder where ``native/libisic_io.so`` loads, and
+otherwise with cv2 image by image under ``extract_radiomics``'s own rule, so
+its pixels are the per-image path's (the JAX package extracts image by image
+without the native decoder; the port keeps chunks on the card either way).
+The decoder is a host choice: it changes neither the device nor a kernel.
+Mesh-sharded extraction waits for the parallel port.  cv2 and pandas are
+imported where they are used.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Sequence, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +48,7 @@ from ..ops import texture as T
 from ..ops import texture_extra as X
 
 CHANNELS = ("grayscale", "red", "green", "blue")
+FEATURE_CLASSES = ("firstorder", "glcm", "glrlm", "glszm", "gldm", "ngtdm")
 CHANNEL_SUFFIX = {"grayscale": "_gs", "red": "_red", "green": "_green",
                   "blue": "_blue"}
 
@@ -105,8 +118,7 @@ def _sorted_names(tree: Dict, prefix: str = "") -> List[str]:
 
 class RadiomicsExtractor:
     """Radiomics extraction on the card in chunks of ``batch`` images
-    (``RadiomicsExtractor`` of the JAX package, without its path-based
-    APIs)."""
+    (``RadiomicsExtractor`` of the JAX package)."""
 
     def __init__(self, bin_width: float = 10.0, label: int = 255,
                  glrlm_max_len: int = 640, batch: int = 16,
@@ -125,6 +137,14 @@ class RadiomicsExtractor:
         self._shape_names = sorted(X.shape2d_features(
             torch.zeros((1, 8, 8), dtype=torch.uint8)))
         self._img_types = sorted(FB.filter_bank(z))
+
+    def get_enabled_image_types(self) -> List[str]:
+        """``RadiomicExtractor.py:17-21`` introspection (JAX :166-169)."""
+        return ["Original", "Wavelet", "LoG", "Square", "SquareRoot",
+                "Logarithm", "Exponential", "Gradient"]
+
+    def get_enabled_features(self) -> List[str]:
+        return list(FEATURE_CLASSES) + ["shape2D"]
 
     def feature_names(self) -> List[str]:
         """The 1218 per-channel names, in the order of every result dict."""
@@ -201,6 +221,112 @@ class RadiomicsExtractor:
                 rgb[s:s + self.batch], masks[s:s + self.batch]))
         return results
 
+    # -- path-based APIs (JAX :221-325) ------------------------------------
+    def extract_radiomics(self, record: Dict) -> Dict[str, Dict[str, float]]:
+        """One image from disk (``RadiomicExtractor.py:23-55``; JAX
+        :221-231): the BGR read, the gray mask, a nearest-neighbour mask
+        resize where its size differs, BGR → RGB."""
+        return self.extract_channels(*read_image_mask(record))
+
+    def _decode_chunk(self, records: Sequence[Dict], hw: Tuple[int, int],
+                      native: bool) -> Tuple[np.ndarray, np.ndarray]:
+        """A chunk's full frames at ``hw`` → (RGB [B, H, W, 3], masks
+        [B, H, W]) uint8: the native batch decoder, or cv2 image by image
+        under :meth:`extract_radiomics`'s rule (a frame of another size
+        resized to ``hw``: the image bilinear, the mask nearest, as the
+        native decoder does)."""
+        from ..data import native_io
+
+        if native:
+            return native_io.decode_full_batch(
+                [r["image_path"] for r in records],
+                [r.get("segmentation_path") for r in records], hw)
+        import cv2  # local: host-only dependency
+
+        rgb = np.empty((len(records), *hw, 3), np.uint8)
+        masks = np.empty((len(records), *hw), np.uint8)
+        for i, r in enumerate(records):
+            im, sg = read_image_mask(r)
+            if im.shape[:2] != tuple(hw):
+                im = cv2.resize(im, hw[::-1], interpolation=cv2.INTER_LINEAR)
+                sg = cv2.resize(sg, hw[::-1], interpolation=cv2.INTER_NEAREST)
+            rgb[i], masks[i] = im, sg
+        return rgb, masks
+
+    def _batched_extraction(self, records: Sequence[Dict],
+                            native: Optional[bool] = None) -> List[Dict]:
+        """Chunks of ``batch`` records at the first image's size, the last
+        padded with its own last record (one shape a chunk), the next chunk
+        decoding on a host thread while the card works on this one (JAX
+        :258-289).  ``native=None`` takes the native decoder where it
+        loads."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ..data import native_io
+
+        if native is None:
+            native = native_io.available()
+        hw = read_image_mask(records[0])[0].shape[:2]
+        bsz = int(self.batch)
+        chunks = [list(records[i:i + bsz])
+                  for i in range(0, len(records), bsz)]
+
+        def decode(chunk):
+            padded = chunk + [chunk[-1]] * (bsz - len(chunk))
+            return self._decode_chunk(padded, hw, native)
+
+        results: List[Dict] = []
+        with ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(decode, chunks[0])
+            for ci, chunk in enumerate(chunks):
+                rgb, masks = fut.result()
+                if ci + 1 < len(chunks):
+                    fut = ex.submit(decode, chunks[ci + 1])
+                results.extend(
+                    self.extract_channels_batch(rgb, masks)[:len(chunk)])
+        return results
+
+    def parallell_extraction(self, list_of_dicts: Sequence[Dict],
+                             n_processes=None) -> List[Dict]:
+        """Name kept (sic) for API parity (JAX :291-312): chunks of
+        ``batch`` on the card through :meth:`_batched_extraction`; prints
+        the decoder and the time taken."""
+        from ..data import native_io
+
+        start = time.time()
+        native = native_io.available()
+        print(f"radiomics decoder: {'native' if native else 'cv2'}")
+        results = (self._batched_extraction(list_of_dicts, native)
+                   if list_of_dicts else [])
+        h, m, s = self._convert_time(start, time.time())
+        print(f" Time taken: {h}h:{m}m:{s}s")
+        return results
+
+    serial_extraction = parallell_extraction
+
+    @staticmethod
+    def _convert_time(start_time, end_time):
+        dt = end_time - start_time
+        return int(dt // 3600), int((dt % 3600) // 60), int(dt % 60)
+
+
+def read_image_mask(record: Dict) -> Tuple[np.ndarray, np.ndarray]:
+    """A record's full frame from disk with cv2 → (RGB [H, W, 3], gray mask
+    [H, W]) uint8, the mask resized nearest to the image where their sizes
+    differ (``RadiomicExtractor.py:29-35``)."""
+    import cv2  # local: host-only dependency
+
+    im = cv2.imread(record["image_path"], cv2.IMREAD_COLOR)  # BGR
+    if im is None:
+        raise FileNotFoundError(record["image_path"])
+    sg = cv2.imread(record["segmentation_path"], cv2.IMREAD_GRAYSCALE)
+    if sg is None:
+        raise FileNotFoundError(record["segmentation_path"])
+    if im.shape[:2] != sg.shape[:2]:
+        sg = cv2.resize(sg, (im.shape[1], im.shape[0]),
+                        interpolation=cv2.INTER_NEAREST)
+    return cv2.cvtColor(im, cv2.COLOR_BGR2RGB), sg
+
 
 def features_to_frame(results: Sequence[Dict[str, Dict[str, float]]]
                       ) -> Tuple[List[str], np.ndarray]:
@@ -215,3 +341,27 @@ def features_to_frame(results: Sequence[Dict[str, Dict[str, float]]]
         blocks.append(np.array([[r[channel][k] for k in keys] for r in results],
                                dtype=np.float64).reshape(len(results), len(keys)))
     return columns, np.concatenate(blocks, axis=1)
+
+
+def extract_radiomics_frames(config, df_train, df_test,
+                             extractor: Optional[RadiomicsExtractor] = None):
+    """The ``extract_radiomics.py`` workload (JAX :328-343): both manifests
+    extracted and their suffixed frames (the JAX ``features_to_frame``,
+    ``extract_radiomics.py:54-71``) pickled to ``dir.radiomics[_test]`` →
+    (train frame, test frame)."""
+    import pandas as pd  # local: host-only dependency
+
+    extractor = extractor or RadiomicsExtractor()
+
+    def frame(df):
+        results = extractor.parallell_extraction(df.to_dict(orient="records"))
+        columns, values = features_to_frame(results)
+        return pd.DataFrame(values, columns=columns)
+
+    train, test = frame(df_train), frame(df_test)
+    d = config["dir"]
+    if d.get("radiomics"):
+        train.to_pickle(d["radiomics"])
+    if d.get("radiomics_test"):
+        test.to_pickle(d["radiomics_test"])
+    return train, test

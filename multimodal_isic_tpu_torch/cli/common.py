@@ -6,17 +6,34 @@ rule: ``''``, ``'tpu'`` (the JAX default) and ``'cuda'`` mean ``cuda:0``;
 ``'cuda:N'`` that card; ``'cpu'`` the CPU.  A CUDA device asked for on a
 machine without one raises; nothing falls back to the CPU.  The CLI runs
 float32 in full float32: TF32 is switched off for cuBLAS and cuDNN, the
-setting of every card check of the port.
+setting of every card check of the port.  Multi-process and multi-card
+runs wait for the parallel port (:func:`check_single_process`).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional, Sequence
 
 import torch
 
 from ..core.config import Config, load_config
+
+MULTIPROCESS_ENV = ("ISIC_COORDINATOR", "ISIC_NUM_PROCESSES",
+                    "ISIC_PROCESS_ID")
+
+
+def check_single_process(config) -> None:
+    """Raise ``ValueError`` for a multi-process or multi-card run."""
+    env = [k for k in MULTIPROCESS_ENV if os.environ.get(k)]
+    if env:
+        raise ValueError(f"multi-process runs ({', '.join(env)} set) are not "
+                         "ported yet: run one process on one card")
+    mesh = config["mesh"]
+    if mesh["data"] not in (-1, 1) or mesh["model"] != 1:
+        raise ValueError(f"mesh {mesh.to_dict()}: the port runs on one card "
+                         "(data -1 or 1, model 1)")
 
 
 def resolve_device(name: str) -> torch.device:

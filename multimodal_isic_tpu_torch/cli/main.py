@@ -47,26 +47,12 @@ from ..train.fusion import (build_fusion, evaluate_test, fusion_optimizer,
                             make_fusion_train_step, padded_epoch_order,
                             train_epoch, validate_epoch)
 from ..utils.logging import RunLogger
-from .common import parse_config, resolve_device
+from .common import check_single_process, parse_config, resolve_device
 
 # eval-side image size of the device-resident validation epoch (the
 # policies bake 380² in; tests patch this beside their small policies)
 FUSED_EVAL_HW = (380, 380)
 GLOBAL_BS = 16  # reference batch size (main.py:120-126)
-MULTIPROCESS_ENV = ("ISIC_COORDINATOR", "ISIC_NUM_PROCESSES",
-                    "ISIC_PROCESS_ID")
-
-
-def check_single_process(config) -> None:
-    """Raise ``ValueError`` for a multi-process or multi-card run."""
-    env = [k for k in MULTIPROCESS_ENV if os.environ.get(k)]
-    if env:
-        raise ValueError(f"multi-process runs ({', '.join(env)} set) are not "
-                         "ported yet: run one process on one card")
-    mesh = config["mesh"]
-    if mesh["data"] not in (-1, 1) or mesh["model"] != 1:
-        raise ValueError(f"mesh {mesh.to_dict()}: the port runs on one card "
-                         "(data -1 or 1, model 1)")
 
 
 def _empty_model(device: torch.device, **cfg) -> MultiModalFusionNet:

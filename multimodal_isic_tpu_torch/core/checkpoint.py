@@ -18,6 +18,9 @@ step + RNG (``train/mae.py:278-283``): the model's state dict under
 metadata the step, the optimizer's parameter groups and the ``RngPool``'s
 stream counters (its generators are derived from them, so they are its
 state).
+
+:func:`restore_partial` (JAX :102-160) restores by name into a target state
+dict, from a checkpoint the port wrote or one the JAX package wrote.
 """
 
 from __future__ import annotations
@@ -89,6 +92,69 @@ def restore_checkpoint(path: str, target: Optional[StateDict] = None,
             out[k] = out[k].to(t.device)
     elif device is not None:
         out = {k: v.to(device) for k, v in out.items()}
+    return out
+
+
+def _named_tensors(path: str, manifest: dict) -> StateDict:
+    """A checkpoint's tensors under the port's state-dict names, with the
+    aliases :func:`restore_partial` matches: a port train state's
+    ``model.`` keys also without the prefix; a JAX tree's ConvMAE leaves
+    through ``models/convert.py::convmae_state_dict`` (leaves no ConvMAE has
+    are left out), a ``params/`` namespace (a JAX ``TrainState``) taken as
+    the parameters, exact names first."""
+    if manifest.get("treedef") == TREEDEF:
+        out: StateDict = {}
+        arrays = restore_checkpoint(path)
+        for k, v in arrays.items():
+            out.setdefault(k, v)
+        for k, v in arrays.items():
+            if k.startswith("model."):
+                out.setdefault(k[len("model."):], v)
+        return out
+    from ..models.convert import convmae_state_dict, read_checkpoint
+    tree = read_checkpoint(path)
+    out = convmae_state_dict(tree, skip_unknown=True)
+    if isinstance(tree.get("params"), dict):
+        for k, v in convmae_state_dict(tree["params"],
+                                       skip_unknown=True).items():
+            out.setdefault(k, v)
+    return out
+
+
+def restore_partial(path: str, target: StateDict, strict: bool = False
+                    ) -> StateDict:
+    """Name-matched restore (the torch ``load_state_dict(strict=False)`` the
+    reference relies on, ``train_ae.py:141``, ``save_latent.py:49``; JAX
+    :102-160) → a new state dict: each ``target`` key the checkpoint holds
+    with the same shape takes the checkpoint's tensor (on the target's
+    device, in its dtype); the others keep the target's; extra checkpoint
+    tensors are ignored.  Reads the port's checkpoints (a train state's
+    ``model.`` prefix as an alias) and the JAX package's (ConvMAE params,
+    bare or under ``params/``).  ``strict=True`` raises ``KeyError`` where
+    a target key is missing or mismatched; 0 matched keys raise
+    ``ValueError`` either way (random weights must not pass as restored)."""
+    with open(os.path.join(path, MANIFEST)) as f:
+        manifest = json.load(f)
+    if "paths" not in manifest:
+        raise ValueError("checkpoint has no leaf paths (older format)")
+    found = _named_tensors(path, manifest)
+    out: StateDict = {}
+    missing = []
+    for k, t in target.items():
+        v = found.get(k)
+        if v is not None and tuple(v.shape) == tuple(t.shape):
+            out[k] = v.to(device=t.device, dtype=t.dtype)
+        else:
+            missing.append(k)
+            out[k] = t
+    if strict and missing:
+        raise KeyError(f"missing/mismatched leaves in checkpoint: "
+                       f"{missing[:8]}{'...' if len(missing) > 8 else ''}")
+    if target and len(missing) == len(target):
+        raise ValueError(
+            f"restore_partial matched 0 of {len(target)} target leaves from "
+            f"{path}; checkpoint paths look like {manifest['paths'][:3]} — "
+            "wrong checkpoint or namespace")
     return out
 
 

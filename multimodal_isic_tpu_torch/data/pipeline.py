@@ -247,6 +247,8 @@ class DeviceLoader:
     transform    batch function on the card, called as
                  ``transform(images, masks[, generator])`` with a generator
                  from ``rng_stream`` when one is given.
+    drop_last    leave out the epoch's final partial batch (the MAE train
+                 loader, JAX ``cli/train_ae.py:77``).
 
     On a CUDA device the producer thread pins each host batch (a fresh
     pinned buffer a batch, which the caching host allocator keeps until the
@@ -261,7 +263,7 @@ class DeviceLoader:
                  order: Optional[np.ndarray] = None,
                  transform: Optional[Callable] = None,
                  rng_stream=None,
-                 device: Device = "cuda"):
+                 device: Device = "cuda", drop_last: bool = False):
         self.records = records
         self.batch_size = batch_size
         self.order = (np.arange(len(records)) if order is None
@@ -269,14 +271,21 @@ class DeviceLoader:
         self.transform = transform
         self.rng_stream = rng_stream
         self.device = torch.device(device)
+        self.drop_last = drop_last
+
+    def _n_rows(self) -> int:
+        """The rows of the epoch's batches (less the partial one under
+        ``drop_last``)."""
+        n = len(self.order)
+        return n - n % self.batch_size if self.drop_last else n
 
     def __len__(self):
-        return -(-len(self.order) // self.batch_size)
+        return -(-self._n_rows() // self.batch_size)
 
     def _host_batches(self) -> Iterator[Dict[str, np.ndarray]]:
         records = self.records
         native_batch = records.use_native and records.with_image
-        for start in range(0, len(self.order), self.batch_size):
+        for start in range(0, self._n_rows(), self.batch_size):
             idx = [int(i) for i in self.order[start:start + self.batch_size]]
             if not native_batch:
                 yield _collate([records[i] for i in idx])

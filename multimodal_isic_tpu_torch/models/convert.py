@@ -136,30 +136,42 @@ def _convmae_module(path: Tuple[str, ...]) -> str:
     return f"{prefix}.{i}.{_VIT[tuple(path[1:])]}"
 
 
-def convmae_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def convmae_state_dict(params: Dict[str, Any], skip_unknown: bool = False
+                       ) -> Dict[str, torch.Tensor]:
     """JAX ``ConvMAE`` params (nested dicts of arrays) → the port's state
     dict, in the upstream ConvMAE naming: the exact inverse of the JAX
     ``models/convmae.py::port_torch_state_dict`` (conv HWIO → OIHW,
     depthwise [5, 5, 1, C] → [C, 1, 5, 5], Dense [in, out] → [out, in],
-    LayerNorm scale → weight, ``pos_embed`` [N, D] → [1, N, D])."""
+    LayerNorm scale → weight, ``pos_embed`` [N, D] → [1, N, D]).  A leaf no
+    ConvMAE has raises ``KeyError``, or is left out with
+    ``skip_unknown``."""
     out = {}
     for path, a in _leaves(params):
-        if path == ("pos_embed",):
-            key, a = "pos_embed", a[None]
-        elif path == ("mask_token",):
-            key = "mask_token"
-        else:
-            leaf = path[-1]
-            if leaf == "kernel":
-                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-                leaf = "weight"
-            elif leaf == "scale":
-                leaf = "weight"
-            elif leaf != "bias":
-                raise KeyError(f"unknown flax leaf {'/'.join(path)}")
-            key = f"{_convmae_module(path[:-1])}.{leaf}"
+        try:
+            key, a = _convmae_leaf(path, a)
+        except KeyError:
+            if skip_unknown:
+                continue
+            raise
         out[key] = torch.from_numpy(np.array(a, np.float32, order="C"))
     return out
+
+
+def _convmae_leaf(path: Tuple[str, ...], a: np.ndarray
+                  ) -> Tuple[str, np.ndarray]:
+    if path == ("pos_embed",):
+        return "pos_embed", a[None]
+    if path == ("mask_token",):
+        return "mask_token", a
+    leaf = path[-1]
+    if leaf == "kernel":
+        a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        leaf = "weight"
+    elif leaf == "scale":
+        leaf = "weight"
+    elif leaf != "bias":
+        raise KeyError(f"unknown flax leaf {'/'.join(path)}")
+    return f"{_convmae_module(path[:-1])}.{leaf}", a
 
 
 def convmae_adamw_state(opt_state: Any, model: torch.nn.Module,

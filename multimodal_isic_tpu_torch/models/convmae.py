@@ -29,7 +29,10 @@ Three flags route blocks to the hand-written kernels, as in the JAX model:
 C and 4C are multiples of 128, decided from the dims), ``use_fused_front``
 (ConvBlock's first half → ``ops.fused_convblock``) and
 ``use_flash_attention`` (every encoder and decoder attention →
-``ops.attention``).
+``ops.attention``).  ``remat_blocks`` (JAX :274,291-292) recomputes every
+conv, ViT and decoder block in the backward pass
+(``torch.utils.checkpoint``) instead of keeping its activations; no block
+draws randomness, so the recomputation gives the same values.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import flash_attention
 from ..ops.depthwise import conv2d_nhwc
@@ -289,9 +293,11 @@ class ConvMAE(nn.Module):
                  with_decoder: bool = True,
                  use_flash_attention: bool = False,
                  use_fused_mlp: bool = False, use_fused_front: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 remat_blocks: bool = False):
         super().__init__()
         d0, d1, d2 = embed_dims
+        self.remat_blocks = remat_blocks
         self.img_size = img_size
         self.embed_dims = tuple(embed_dims)
         self.depths = tuple(depths)
@@ -333,6 +339,13 @@ class ConvMAE(nn.Module):
     def num_patches(self) -> int:
         return self.grid * self.grid
 
+    def _block(self, blk: nn.Module, *args) -> torch.Tensor:
+        """``blk(*args)``, recomputed in the backward pass under
+        ``remat_blocks`` when gradients are recorded."""
+        if self.remat_blocks and torch.is_grad_enabled():
+            return checkpoint(blk, *args, use_reentrant=False)
+        return blk(*args)
+
     # ------------------------------------------------------------- encoder
     def masking(self, batch: int, mask_ratio: float,
                 generator: Optional[torch.Generator] = None,
@@ -372,10 +385,10 @@ class ConvMAE(nn.Module):
         pe = self.patch_embed1
         x = pe.norm(pe.project(imgs))                        # 56×56×256
         for blk in self.blocks1:
-            x = blk(x, keep1)
+            x = self._block(blk, x, keep1)
         x = self.patch_embed2.norm(self.patch_embed2.project(x))  # 28²×384
         for blk in self.blocks2:
-            x = blk(x, keep2)
+            x = self._block(blk, x, keep2)
         x = self.patch_embed3.project(x)                     # 14×14×768
         x = x.reshape(b, self.num_patches, self.embed_dims[2])
         x = self.patch_embed3.norm(x)
@@ -383,7 +396,7 @@ class ConvMAE(nn.Module):
         # drop masked tokens before the transformer
         x = torch.gather(x, 1, ids_keep[:, :, None].expand(-1, -1, x.shape[-1]))
         for blk in self.blocks3:
-            x = blk(x)
+            x = self._block(blk, x)
         return self.norm(x).float(), mask, ids_restore
 
     forward_encoder = encode
@@ -401,7 +414,7 @@ class ConvMAE(nn.Module):
         x = x + sincos_pos_embed(self.decoder_dim, self.grid,
                                  x.device).to(x.dtype)
         for blk in self.decoder_blocks:
-            x = blk(x)
+            x = self._block(blk, x)
         x = self.decoder_norm(x)
         return dense(x, self.decoder_pred, self.dtype).float()
 
@@ -441,13 +454,15 @@ def convmae_convvit_base_patch16_dec512d8b(
         norm_pix_loss: bool = False, with_decoder: bool = True,
         dtype: torch.dtype = torch.float32, use_fused_mlp: bool = True,
         use_fused_front: bool = False,
-        use_flash_attention: bool = False) -> ConvMAE:
+        use_flash_attention: bool = False,
+        remat_blocks: bool = False) -> ConvMAE:
     """The reference's constructor.  ``use_fused_mlp`` defaults to on, as
     the JAX config does (``core/config.py:92``)."""
     return ConvMAE(norm_pix_loss=norm_pix_loss, with_decoder=with_decoder,
                    dtype=dtype, use_fused_mlp=use_fused_mlp,
                    use_fused_front=use_fused_front,
-                   use_flash_attention=use_flash_attention)
+                   use_flash_attention=use_flash_attention,
+                   remat_blocks=remat_blocks)
 
 
 _TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]

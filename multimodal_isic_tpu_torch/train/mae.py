@@ -21,8 +21,11 @@ draws.  Every forward step runs under ``torch.inference_mode()`` with the
 model in eval mode (ConvMAE has no dropout or batch statistics, so the mode
 changes nothing but is restored all the same).
 
-Not ported yet: ``remat_blocks``, the every-10-epochs latent and
-reconstruction diagnostics, the multi-process ``val_n_true`` branch.
+:func:`train_mae` runs an epoch either device-resident (``fused_train`` /
+``fused_val``) or over loaders of batches on the card (``train_batches`` /
+``val_batches``, JAX :188-288), and calls ``epoch_hook`` after each epoch
+(``cli/train_ae.py``'s diagnostics).  The multi-process ``val_n_true``
+branch waits for the parallel port.
 """
 
 from __future__ import annotations
@@ -204,28 +207,77 @@ def make_encoder_step(model: ConvMAE) -> Callable:
 
 # -------------------------------------------------------------- the loop
 
+def _weighted_mean(losses, sizes) -> float:
+    """Σ lossᵢ·nᵢ / Σ nᵢ in float64 on the host, as the JAX loop sums
+    ``float(loss) * n``, from one device→host copy; nan for none."""
+    if not losses:
+        return float("nan")
+    values = torch.stack(losses).tolist()
+    return sum(v * n for v, n in zip(values, sizes)) / sum(sizes)
+
+
 def train_mae(model: ConvMAE, optimizer: torch.optim.Optimizer,
-              fused_train: Callable, fused_val: Callable, num_epochs: int,
-              rng, logger=None, checkpoint_dir: Optional[str] = None) -> Dict:
-    """The epoch loop (``train_ae.py:163-216``) over the device-resident
-    epochs: ``fused_train(epoch, aug_rng, mask_rng) → loss`` and
-    ``fused_val(generator) → loss`` (:func:`make_mae_train_epoch` /
-    :func:`make_mae_eval_epoch` bound to staged arrays; ``fused_train``
-    steps ``optimizer``).  ``rng`` is a ``core.rng.RngPool``: its
-    ``augment`` stream feeds augmentation, its ``mask`` stream the train
-    masking and its ``eval`` stream the validation masking, one generator
-    per epoch.
+              fused_train: Optional[Callable] = None,
+              fused_val: Optional[Callable] = None, num_epochs: int = 1,
+              rng=None, logger=None, checkpoint_dir: Optional[str] = None,
+              *, train_batches: Optional[Callable] = None,
+              val_batches: Optional[Callable] = None,
+              mask_ratio: float = 0.75, eval_mask_ratio: float = 0.75,
+              use_lesion_mask: bool = False,
+              epoch_hook: Optional[Callable] = None) -> Dict:
+    """The epoch loop (``train_ae.py:163-216``; JAX :188-288).  ``rng`` is a
+    ``core.rng.RngPool``; each epoch takes one generator of its ``mask``
+    stream for the train masking and one of its ``eval`` stream for the
+    validation masking, each consumed in step order.
+
+    Train side, one of:
+    - ``fused_train(epoch, aug_rng, mask_rng) → loss`` (device-resident,
+      :func:`make_mae_train_epoch` bound to staged arrays and stepping
+      ``optimizer``; ``aug_rng`` from the ``augment`` stream);
+    - ``train_batches(epoch)``: an iterable of batches on the card ('image',
+      and 'mask' for lesion-guided masking) for a train step at
+      ``mask_ratio`` (the loader draws its own augmentation).
+    Validation side, one of ``fused_val(generator) → loss`` or
+    ``val_batches()`` for an eval step at ``eval_mask_ratio``.  A loader's
+    epoch loss is the batch losses' mean weighted by batch size.
 
     At each new best validation loss the weights are copied (the live
     ``state_dict`` aliases the parameters that later steps change) and,
     with ``checkpoint_dir``, model + optimizer + step + RNG are saved.
+    ``epoch_hook(epoch, model)`` runs after each epoch.
     → {model, optimizer, best_state, best_val_loss, history, checkpoint}."""
+    if (fused_train is None) == (train_batches is None) or \
+            (fused_val is None) == (val_batches is None):
+        raise ValueError("give one of fused_train / train_batches and one "
+                         "of fused_val / val_batches")
+    train_step = (make_mae_train_step(model, optimizer, mask_ratio,
+                                      use_lesion_mask)
+                  if fused_train is None else None)
+    eval_step = (make_mae_eval_step(model, eval_mask_ratio)
+                 if fused_val is None else None)
     best_val, best_state, path = float("inf"), None, None
     history = []
     for epoch in range(num_epochs):
-        train_loss = float(fused_train(epoch, rng["augment"].next(),
-                                       rng["mask"].next()))
-        val_loss = float(fused_val(rng["eval"].next()))
+        if fused_train is not None:
+            train_loss = float(fused_train(epoch, rng["augment"].next(),
+                                           rng["mask"].next()))
+        else:
+            gen = rng["mask"].next()
+            losses, sizes = [], []
+            for batch in train_batches(epoch):
+                losses.append(train_step(batch["image"], batch.get("mask"),
+                                         gen))
+                sizes.append(batch["image"].shape[0])
+            train_loss = _weighted_mean(losses, sizes)
+        if fused_val is not None:
+            val_loss = float(fused_val(rng["eval"].next()))
+        else:
+            gen = rng["eval"].next()
+            losses, sizes = [], []
+            for batch in val_batches():
+                losses.append(eval_step(batch["image"], gen))
+                sizes.append(batch["image"].shape[0])
+            val_loss = _weighted_mean(losses, sizes)
         history.append({"epoch": epoch, "train_loss": train_loss,
                         "val_loss": val_loss})
         if logger is not None:
@@ -242,5 +294,7 @@ def train_mae(model: ConvMAE, optimizer: torch.optim.Optimizer,
                     checkpoint_dir, model, optimizer,
                     optimizer_step_count(optimizer), rng_pool=rng,
                     metadata={"epoch": epoch, "val_loss": val_loss})
+        if epoch_hook is not None:
+            epoch_hook(epoch, model)
     return {"model": model, "optimizer": optimizer, "best_state": best_state,
             "best_val_loss": best_val, "history": history, "checkpoint": path}

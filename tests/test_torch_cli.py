@@ -261,6 +261,44 @@ def test_parse_config_device_rule_and_tf32(workspace, monkeypatch):
         tmain.main(["--config_path", _write(root, "dev", config)])
 
 
+def test_port_main_reads_the_reduced_radiomics(workspace):
+    """With ``radiomics_red`` and ``radiomics_test_red`` on disk (the
+    reduce_dim CLI's outputs, here 37 seeded columns) the port's ``main``
+    builds the radiomics MLP at their width, not the 102-wide placeholder,
+    and feeds their rows: a model restored from its checkpoint gives its
+    test logits bit for bit on records built from the reduced test pickle
+    (JAX ``cli/main.py:65-69,110``)."""
+    import pandas as pd
+    root, config = workspace
+    cfg = _variant(root, config, "reduced")
+    path = _write(root, "reduced", cfg)
+    tprep.main(["--config_path", path])
+    df_train = pd.read_pickle(cfg["dir"]["df"])
+    df_test = pd.read_pickle(cfg["dir"]["df_test"])
+    rng = np.random.RandomState(0)
+    reduced = {}
+    for key, n in (("radiomics_red", len(df_train)),
+                   ("radiomics_test_red", len(df_test))):
+        reduced[key] = pd.DataFrame(rng.randn(n, 37),
+                                    columns=[f"f{i}_gs" for i in range(37)])
+        cfg["dir"][key] = str(root / f"reduced_{key}.pkl")
+        reduced[key].to_pickle(cfg["dir"][key])
+    result = tmain.main(["--config_path", _write(root, "reduced", cfg)])
+    state = tck.restore_checkpoint(result["model_path"])
+    assert state["radiomics_mlp.fc1.weight"].shape == (256, 37)
+    model = tfu.MultiModalFusionNet(modality=META_MODS,
+                                    fusion_strategy="concat",
+                                    radiomics_dim=37)
+    model.load_state_dict(state)
+    loader = tpipe.DeviceLoader(
+        tpipe.DermRecords(df_test, radiomics=reduced["radiomics_test_red"]
+                          .values, with_image=False),
+        tmain.GLOBAL_BS, device="cpu")
+    step = ttr.make_fusion_eval_step(model)
+    assert torch.equal(torch.cat([step(b)[1] for b in loader]),
+                       result["logits"])
+
+
 def _remat_step(remat):
     model = ttr.build_fusion(generator(0, "cpu"), backbone="efficientnet-b0",
                              radiomics_dim=20, fusion_strategy="concat",

@@ -88,8 +88,9 @@ def _slice():
     train, test = batches(slice(0, 6)), batches(slice(6, 9))
     j_train = jlp.extract_latent_bundle(jm, params, [b[0] for b in train])
     j_test = jlp.extract_latent_bundle(jm, params, [b[0] for b in test])
-    t_tables = tlp.extract_latents(tm, [b[1] for b in train],
-                                   [b[1] for b in test], pca_enabled=True)
+    t_tables = tlp.extract_latent_tables(tm, [b[1] for b in train],
+                                         [b[1] for b in test],
+                                         pca_enabled=True)
     return train, (j_train, j_test), t_tables
 
 
