@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, radiomics and ConvMAE
-slices, of the first-order and bare-MLP entry points and of the CLIs, on one
-CUDA card.
+slices, of the first-order and bare-MLP entry points and of the CLIs (MIL
+cross-validation included), on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -134,6 +134,23 @@ width with random weights from a seed:
    ``cli.save_latent`` on its checkpoint (bf16, bs 128, PCA: the six frames
    with JAX's columns, 4 fused launches a forward, latents within
    ``LATENT_TOL`` of the encoder with every flag off, img/s).
+15. MIL cross-validation on phase 14's latents through
+   ``cli.use_latent``, every launch count at 0 before each run, at
+   ``configs/config.yml``'s ``best_params`` widths (AttentionMIL 368 / 772,
+   adamw; GraphMIL GAT 384 × 3 layers, 1 head, grid graph, pooling 128 × 4,
+   light classifier 64) on 160 patient bags of 196 patches: single-frame
+   mode, ``mil`` then ``graph-mil``, 5 folds of 2 epochs at patience 2 (a
+   depth cut of the CLI's 200 epochs at patience 16; finite rows, the
+   summary keys, fold membership equal to ``StratifiedKFold`` on the CPU,
+   no kernel launch); sweep mode on a checkpoint whose tree matches
+   nothing and on phase 14's ``mae_ckpt/`` best step (NaN rows, finite
+   rows, the snapshot's hash header, 4 fused LN-MLP launches an encoder
+   forward of the re-extraction, its latents within ``LATENT_TOL`` of
+   phase 14's frames); every gnn type on every graph type at 196 × 768 on
+   seeded weights, the card against the CPU (eval forward within
+   ``MIL_FWD_TOL``, one step's gradients within ``MIL_GRAD_TOL``, the kNN
+   graph bit for bit with TF32 on); times the per-bag step (ms, launches,
+   busy share), a training epoch's and an evaluation's bags/s.
 
 Float32 on the card runs in full float32 here: TF32 is off for cuDNN and
 cuBLAS throughout (``torch.backends.cudnn.allow_tf32 = False``).
@@ -147,6 +164,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -758,7 +776,8 @@ KERNEL_FAMILIES = (  # (label, substrings of the kernel name), first match
 def profile_steps(fn, label, steps=3):
     """torch.profiler over ``steps`` calls after a warm-up: the device's
     busy share of the window (kernel time summed on the one stream over the
-    host-clock window) and the kernel time by family, per call."""
+    host-clock window) and the kernel time by family, per call → those
+    numbers (ms, launches and busy share a call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -783,6 +802,8 @@ def profile_steps(fn, label, steps=3):
           f"launches), busy share {busy / wall:.3f}; by family: "
           + ", ".join(f"{k} {v / steps:.2f} ms"
                       for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
+    return {"wall_ms": wall / steps, "busy_ms": busy / steps,
+            "launches": len(kernels) / steps, "busy_share": busy / wall}
 
 
 def kernel_breakdown(fn, label, pattern, calls=3):
@@ -792,7 +813,6 @@ def kernel_breakdown(fn, label, pattern, calls=3):
     ``calls`` traces that recorded every kernel of the call once, so no
     launch the trace lost is averaged over.  Prints how many traces were
     complete."""
-    import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -3300,7 +3320,432 @@ def mae_chain(device, root, config):
     print(f"M2 save_latent's extraction from disk (decode, bs "
           f"{SL.LATENT_BS} bf16 encoder, tables, PCA, frames; {n_all} "
           f"lesions a call): {_spread(out['latent_img_s'])} (host clock)")
+    out.update(checkpoint=runs["mae_cached"]["checkpoint"],
+               latent_config=cfg)
     return out
+
+
+MIL_FOLDS = 5          # cli.use_latent's default
+MIL_EPOCHS = 2         # depth cut: the CLI's default is 200 epochs
+MIL_PATIENCE = 2       # depth cut: the CLI's default is 16
+MIL_NODES, MIL_DIM = 196, 768   # patches a bag, the encoder's width
+GNN_TYPES = ("gcn", "gin", "graphsage", "gat", "transformer")
+GRAPH_TYPES = ("grid", "knn", "random")
+# card vs CPU, float32 without TF32 on both (different GEMM and reduction
+# orders): eval-mode probabilities and attention; one train step's
+# gradients, |card − CPU| ≤ MIL_GRAD_TOL · the tensor's largest |gradient|
+# + MIL_ZERO_GRAD · the model's largest.  The second term is float32's
+# noise floor for a gradient that is 0 in exact arithmetic: a softmax over
+# the patches or a row's edges does not see the attention-score biases
+# (``att_fc2``, ``pool_att{j}_fc2``), a transformer layer's key bias, or
+# GAT's ``att_dst`` where every edge of each row has one LeakyReLU slope
+MIL_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+MIL_GRAD_TOL = 1e-3
+MIL_ZERO_GRAD = 1e-5
+MIL_STEPS = 64         # timed per-bag steps
+
+
+def _every_launch():
+    """Every kernel wrapper (each counts its launches), by the kernels
+    line's names."""
+    from multimodal_isic_tpu_torch.ops import affine_warp as aw
+    from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
+    from multimodal_isic_tpu_torch.ops import fused_mlp as FM
+    from multimodal_isic_tpu_torch.ops import histogram as Hm
+    fns = {"expand_dw_silu_pool": fd.expand_dw_silu_pool,
+           "dw_silu_pool": fd.dw_silu_pool,
+           "affine_warp_batch": aw.affine_warp_batch,
+           "fused_ln_mlp_backward": FM.fused_ln_mlp_backward,
+           "firstorder_accumulate": Hm.firstorder_accumulate,
+           "fused_mlp": FM.fused_mlp}
+    fns.update({k: v[0] for k, v in _rad_fns().items()})
+    fns.update({k: v[0] for k, v in _mae_fns().items()})
+    return fns
+
+
+def _reset_every_launch():
+    for fn in _every_launch().values():
+        fn.launches = 0
+
+
+def _launched():
+    return {k: fn.launches for k, fn in _every_launch().items()
+            if fn.launches}
+
+
+def _best_params():
+    """``configs/config.yml``'s two HPO records (the smoke's widths)."""
+    import yaml
+    raw = yaml.safe_load((Path(__file__).parent / "configs" /
+                          "config.yml").read_text())
+    return dict(raw["best_params"]), dict(raw["best_params_graph-mil"])
+
+
+class _FoldRecorder:
+    """Wraps ``train.cv``'s two trainables: records each fold's test bags
+    and the epoch losses, then trains as the CLI asked."""
+
+    def __init__(self, cv):
+        self.cv, self.folds = cv, []
+        self.kept = (cv.train_mil, cv.train_graph_mil)
+        cv.train_mil = self._wrap(self.kept[0])
+        cv.train_graph_mil = self._wrap(self.kept[1])
+
+    def _wrap(self, fn):
+        def run(config, data, **kw):
+            out = fn(config, data, **kw)
+            self.folds.append({"test_feats": data["test_feats"],
+                               "n_train": len(data["train_feats"]),
+                               "losses": out["_epoch_losses"]})
+            return out
+        return run
+
+    def close(self):
+        self.cv.train_mil, self.cv.train_graph_mil = self.kept
+
+
+def _mil_rows_check(label, frame, n_rows):
+    """``n_rows`` rows, each column finite."""
+    cols = [c for c in frame.columns if c not in ("fold", "error", "id",
+                                                  "checkpoint_type")]
+    vals = frame[cols].astype(float).values
+    if len(frame) != n_rows or not np.isfinite(vals).all():
+        bad = [c for c in cols
+               if not np.isfinite(frame[c].astype(float)).all()]
+        raise AssertionError(f"{label}: {len(frame)} rows, non-finite {bad}")
+
+
+def mil_single_frame(device, root, config, frame_path):
+    """15a: ``cli.use_latent`` in single-frame mode on phase 14's patch
+    frame, ``mil`` then ``graph-mil``, at ``configs/config.yml``'s widths
+    → numbers for PERF.md."""
+    import pandas as pd
+    from multimodal_isic_tpu_torch.analysis.bags import build_patient_bags
+    from multimodal_isic_tpu_torch.cli import use_latent as UL
+    from multimodal_isic_tpu_torch.train import cv as CV
+    best_mil, best_graph = _best_params()
+    bags, labels, _ = build_patient_bags(pd.read_pickle(frame_path))
+    folds = CV.fold_splits(labels, MIL_FOLDS, SEED)
+    print(f"15a patch frame {frame_path.name}: {len(bags)} patient bags of "
+          f"{sorted({len(b) for b in bags})} patches × {bags[0].shape[1]} "
+          f"(PCA), classes {np.bincount(labels).tolist()}")
+    out = {}
+    for kind in ("mil", "graph-mil"):
+        cfg = json.loads(json.dumps(config))
+        cfg.update(num_classes=7, best_params=best_mil,
+                   **{"best_params_graph-mil": best_graph})
+        path = _write_yaml(root, f"use_latent_{kind}", cfg)
+        csv = root / f"cv_{kind}.csv"
+        rec = _FoldRecorder(CV)
+        _reset_every_launch()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            res, lines = _quiet(lambda: UL.main([
+                "--config_path", str(path), "--model_type", kind,
+                "--patch_df", str(frame_path), "--n_folds", str(MIL_FOLDS),
+                "--max_epochs", str(MIL_EPOCHS),
+                "--patience", str(MIL_PATIENCE), "--csv", str(csv)]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            rec.close()
+        launched = _launched()
+        rows = pd.read_csv(csv)
+        print("\n".join(f"  cli.use_latent {kind}: {ln}" for ln in lines
+                        if not ln.startswith(("val_", "test_"))))
+        summary = res["summary"]
+        print(f"15a cli.use_latent --model_type {kind} ({MIL_FOLDS} folds, "
+              f"{MIL_EPOCHS} epochs, patience {MIL_PATIENCE}): {wall:.1f} s, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"kernel launches {launched or 'none'}; epoch losses "
+              f"{[[round(v, 4) for v in f['losses']] for f in rec.folds]}; "
+              + ", ".join(f"{k} {summary[k][0]:.4f} ± {summary[k][1]:.4f}"
+                          for k in ("val_bacc", "test_bacc_best_bacc",
+                                    "test_auc_best_bacc",
+                                    "test_loss_best_loss")))
+        if launched:
+            raise AssertionError(f"15a {kind}: kernel launches {launched}")
+        _mil_rows_check(f"15a {kind}", rows, MIL_FOLDS)
+        want_keys = {f"val_{k}" for k in CV.METRIC_KEYS} | {
+            f"test_{k}_{c}" for k in CV.TEST_METRIC_KEYS
+            for c in ("best_bacc", "best_loss")}
+        if set(summary) != want_keys:
+            raise AssertionError(f"15a summary keys {sorted(summary)}")
+        if len(rec.folds) != MIL_FOLDS or not all(
+                np.isfinite(f["losses"]).all() for f in rec.folds):
+            raise AssertionError("15a fold losses")
+        for (tr, te), fold in zip(folds, rec.folds):
+            if fold["n_train"] != len(tr) or len(fold["test_feats"]) != len(
+                    te) or not all(np.array_equal(a, bags[i]) for a, i in
+                                   zip(fold["test_feats"], te)):
+                raise AssertionError(f"15a {kind}: fold membership differs "
+                                     "from StratifiedKFold on the CPU")
+        print(f"15a {kind}: {MIL_FOLDS} finite rows; summary keys; fold "
+              f"membership equal to StratifiedKFold on the CPU "
+              f"({[len(te) for _, te in folds]} test bags a fold)")
+        out[kind] = wall
+    return out, bags, labels
+
+
+def mil_sweep(device, root, config, mae):
+    """15b: ``cli.use_latent`` in sweep mode on a checkpoint whose tree
+    matches nothing and on phase 14's ``mae_ckpt/`` best step: NaN rows,
+    finite rows, the snapshot's hash header, 4 B9 launches an encoder
+    forward of the re-extraction, the latents within ``LATENT_TOL`` of
+    phase 14's frames."""
+    import contextlib
+    import hashlib
+    import pandas as pd
+    from multimodal_isic_tpu_torch.cli import save_latent as SL
+    from multimodal_isic_tpu_torch.cli import use_latent as UL
+    from multimodal_isic_tpu_torch.core import checkpoint
+    from multimodal_isic_tpu_torch.train import cv as CV
+    best_mil, _ = _best_params()
+    cfg = json.loads(json.dumps(mae["latent_config"]))
+    cfg.update(num_classes=7, best_params=best_mil)
+    path = _write_yaml(root, "use_latent_sweep", cfg)
+    bad = root / "bad_ckpt"
+    checkpoint.save_checkpoint(str(bad), {"unrelated.w": torch.zeros(3)})
+    good = mae["checkpoint"]
+    out_dir = root / "mil_sweep"
+    extracted = []
+    kept = SL.extract_latents
+
+    def record(*args, **kwargs):
+        frames = kept(*args, **kwargs)
+        extracted.append(frames)
+        return frames
+    SL.extract_latents = record
+    _reset_every_launch()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with contextlib.chdir(root):
+            t0 = time.perf_counter()
+            res, lines = _quiet(lambda: UL.main([
+                "--config_path", str(path), "--model_type", "mil",
+                "--checkpoints", f"{bad},{good}",
+                "--n_folds", str(MIL_FOLDS), "--max_epochs", str(MIL_EPOCHS),
+                "--patience", str(MIL_PATIENCE), "--out_dir", str(out_dir)]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        SL.extract_latents = kept
+    launched = _launched()
+    n_train = len(pd.read_pickle(config["dir"]["df"]))
+    forwards = -(-n_train // SL.LATENT_BS) + -(-CLI_N_TEST // SL.LATENT_BS)
+    print("\n".join(f"  cli.use_latent sweep: {ln}" for ln in lines
+                    if "Error" in ln or "patient bags" in ln
+                    or "Processing" in ln))
+    print(f"15b cli.use_latent sweep (bad checkpoint, then "
+          f"{Path(good).parent.name}/{Path(good).name}; mil, {MIL_FOLDS} "
+          f"folds, {MIL_EPOCHS} epochs): {wall:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launched} over {forwards} encoder forwards")
+    if launched != {"fused_ln_mlp": 4 * forwards}:
+        raise AssertionError(f"15b launches {launched} != "
+                             f"{{'fused_ln_mlp': {4 * forwards}}}")
+    (csv,) = [p for p in out_dir.iterdir()
+              if p.name.startswith("runs_df_mil_results_")]
+    rows = pd.read_csv(csv)
+    stems = [c for _, c in CV.SWEEP_COLS]
+    if list(rows["checkpoint_type"]) != ["best_bacc", "best_loss"] * 2 or \
+            not rows.iloc[:2][stems].isna().all().all():
+        raise AssertionError(f"15b rows {rows.to_dict('records')}")
+    _mil_rows_check("15b good checkpoint", rows.iloc[2:][stems + [
+        f"{c}_std" for c in stems]], 2)
+    (snap,) = [p for p in out_dir.iterdir() if p.name.startswith("config_")]
+    header, body = snap.read_text().split("\n", 1)
+    if header != "# config_hash: " + hashlib.sha1(
+            body.encode()).hexdigest()[:8]:
+        raise AssertionError(f"15b snapshot header {header!r}")
+    print(f"15b rows: bad checkpoint NaN ({rows['error'].iloc[0][:60]}...), "
+          f"good finite (micro_accuracy "
+          f"{rows['micro_accuracy'].iloc[2]:.4f} ± "
+          f"{rows['micro_accuracy_std'].iloc[2]:.4f}); {snap.name}: {header}")
+    (frames,) = extracted
+    got = torch.from_numpy(np.concatenate([
+        np.stack(frames[4]["latent"].values),
+        np.stack(frames[5]["latent"].values)])).to(device)
+    want = torch.from_numpy(np.concatenate([
+        np.stack(pd.read_pickle(root / "dataframes_latents" /
+                                f"latent_raw_{s}_df.pkl")["latent"].values)
+        for s in ("train", "test")])).to(device)
+    mx, rel = _latent_err(got, want)
+    print(f"15b re-extracted latents vs phase 14's frames: max_abs_err "
+          f"{mx:.4f}, relative RMS {rel:.5f} (tolerance {LATENT_TOL})")
+    if mx > LATENT_TOL["max_abs"] or rel > LATENT_TOL["rel_rms"]:
+        raise AssertionError("15b latents out of tolerance")
+    return {"wall": wall, "b9": launched["fused_ln_mlp"],
+            "forwards": forwards}
+
+
+def _mil_grads(model, x, adj, valid, y):
+    """One train step's gradients at dropout 0 (no draw: the CPU's and the
+    card's generators differ)."""
+    from multimodal_isic_tpu_torch.models.mil import mil_loss
+    model.zero_grad(set_to_none=True)
+    probs, _ = model(*((x,) if adj is None else (x, adj)), valid=valid)
+    mil_loss(probs, y).backward()
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def mil_card_vs_cpu(device, real_bag):
+    """15c: every gnn type on every graph type (and AttentionMIL) at the
+    best-params widths on one 196 × 768 bag, seeded weights: the eval
+    forward on the card and on the CPU within ``MIL_FWD_TOL``, one train
+    step's gradients (dropout 0) within ``MIL_GRAD_TOL`` and
+    ``MIL_ZERO_GRAD``, and the grid and
+    kNN adjacencies equal bit for bit (kNN built on the card with TF32 on
+    globally; the random graph drawn on the CPU and copied)."""
+    import copy
+    from multimodal_isic_tpu_torch.core.rng import generator
+    from multimodal_isic_tpu_torch.models.mil import AttentionMIL
+    from multimodal_isic_tpu_torch.train import mil as TM
+    best_mil, best_graph = _best_params()
+    rng = np.random.RandomState(SEED + 50)
+    x = rng.randn(MIL_NODES, MIL_DIM).astype(np.float32)
+    x[150:160] = x[149]  # planted exact ties for kNN
+    xc, vc = torch.from_numpy(x), torch.ones(MIL_NODES, dtype=torch.bool)
+    xd, vd, y = xc.to(device), vc.to(device), torch.tensor(3)
+    worst = {"probs": 0.0, "att": 0.0, "grad": 0.0, "zero": 0.0}
+
+    def compare(label, m_cpu, adj_c, adj_d):
+        m_dev = copy.deepcopy(m_cpu).to(device)
+        with torch.no_grad():
+            pc, ac = m_cpu(*((xc,) if adj_c is None else (xc, adj_c)),
+                           valid=vc)
+            pd_, ad = m_dev(*((xd,) if adj_d is None else (xd, adj_d)),
+                            valid=vd)
+        torch.testing.assert_close(pd_.cpu(), pc, **MIL_FWD_TOL)
+        torch.testing.assert_close(ad.cpu(), ac, **MIL_FWD_TOL)
+        worst["probs"] = max(worst["probs"],
+                             float((pd_.cpu() - pc).abs().max()))
+        worst["att"] = max(worst["att"], float((ad.cpu() - ac).abs().max()))
+        gc = _mil_grads(m_cpu, xc, adj_c, vc, y)
+        gd = _mil_grads(m_dev, xd, adj_d, vd, y.to(device))
+        top = max(float(g.abs().max()) for g in gc.values())
+        for n, g in gc.items():
+            if not bool(torch.isfinite(gd[n]).all()):
+                raise AssertionError(f"15c {label} gradient {n} not finite")
+            scale = float(g.abs().max())
+            err = float((gd[n] - g).abs().max())
+            if err > MIL_GRAD_TOL * scale + MIL_ZERO_GRAD * top:
+                raise AssertionError(f"15c {label} gradient {n}: |card − "
+                                     f"CPU| {err:.3e}, its largest "
+                                     f"{scale:.3e}, the model's {top:.3e}")
+            if scale > 1e-3 * top:
+                worst["grad"] = max(worst["grad"], err / scale)
+            else:
+                worst["zero"] = max(worst["zero"], err / top)
+
+    m = AttentionMIL(MIL_DIM, int(best_mil["hidden_dim"]),
+                     int(best_mil["att_dim"]), float(best_mil["dropout"]), 7)
+    TM.init_params_(m, SEED)
+    compare("mil", m, None, None)
+    adj_checks = []
+    for graph_type in GRAPH_TYPES:
+        cfg = {**best_graph, "graph_type": graph_type}
+        adj_c = TM._adj_for_bag(xc, vc, cfg, generator(SEED, "cpu"))
+        if graph_type == "random":
+            adj_d = adj_c.to(device)
+        else:
+            for bag in (x, real_bag):
+                bc = torch.from_numpy(np.ascontiguousarray(bag))
+                want = TM._adj_for_bag(bc, vc, cfg)
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    got = TM._adj_for_bag(bc.to(device), vd, cfg)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(
+                        f"15c {graph_type} adjacency: card != CPU in "
+                        f"{int((got.cpu() != want).sum())} entries")
+                adj_checks.append(f"{graph_type} {int(want.sum())} edges")
+            adj_d = TM._adj_for_bag(xd, vd, cfg)
+        for gnn_type in GNN_TYPES:
+            m = TM.graph_mil_from_config({**cfg, "gnn_type": gnn_type},
+                                         MIL_DIM, 7)
+            TM.init_params_(m, SEED)
+            compare(f"{gnn_type}/{graph_type}", m, adj_c, adj_d)
+    print(f"15c card vs CPU at 196 × 768, best-params widths (AttentionMIL "
+          f"{best_mil['hidden_dim']}/{best_mil['att_dim']}; GraphMIL hidden "
+          f"{best_graph['gnn_hidden']} × {best_graph['gnn_layers']} layers, "
+          f"heads {best_graph['gnn_heads']}, pool {best_graph['att_dim']} × "
+          f"{best_graph['att_heads']}) for {', '.join(GNN_TYPES)} on "
+          f"{', '.join(GRAPH_TYPES)}: worst probs {worst['probs']:.2e}, "
+          f"attention {worst['att']:.2e} (tolerance {MIL_FWD_TOL}); "
+          f"gradients {worst['grad']:.2e} of each tensor's largest where "
+          f"that is above 1e-3 of the model's, {worst['zero']:.2e} of the "
+          f"model's largest elsewhere (tolerance {MIL_GRAD_TOL} of the "
+          f"tensor's + {MIL_ZERO_GRAD} of the model's); adjacency bit for "
+          f"bit, kNN with TF32 "
+          f"on ({'; '.join(adj_checks)}; seeded bag, then a phase 14 bag)")
+    return worst
+
+
+def time_mil(device, bags, labels):
+    """15d: per-bag train steps (ms a step, launches a step, busy share),
+    a training epoch's and an evaluation's bags/s, at the best-params
+    widths on phase 14's bags."""
+    from multimodal_isic_tpu_torch.core.rng import generator
+    from multimodal_isic_tpu_torch.models.mil import AttentionMIL
+    from multimodal_isic_tpu_torch.train import mil as TM
+    best_mil, best_graph = _best_params()
+    feats, valid = TM.pad_bags(bags)
+    labels = np.asarray(labels)
+    order = np.random.RandomState(SEED).choice(len(bags), MIL_STEPS)
+    out = {}
+    for kind, cfg in (("mil", best_mil), ("graph-mil", best_graph)):
+        if kind == "mil":
+            model = AttentionMIL(feats.shape[-1], int(cfg["hidden_dim"]),
+                                 int(cfg["att_dim"]), float(cfg["dropout"]),
+                                 7)
+        else:
+            model = TM.graph_mil_from_config(cfg, feats.shape[-1], 7)
+        TM.init_params_(model, SEED)
+        model.to(device)
+        split = TM.BagSplit(feats, valid, labels, device,
+                            cfg if kind == "graph-mil" else None)
+        opt = TM.make_optimizer(model.parameters(), cfg["optimizer"],
+                                float(cfg["lr"]), float(cfg["weight_decay"]))
+        gen = generator(SEED, device)
+
+        def epoch():
+            return TM.train_epoch(model, opt, split, order, gen)
+        steps = _host_rates(epoch, MIL_STEPS, HOST_REPS)
+        prof = profile_steps(lambda: TM.train_epoch(model, opt, split,
+                                                    order[:8], gen),
+                             f"{kind} 8 per-bag steps", steps=1)
+        evals = _host_rates(lambda: TM.predict_probs(model, split),
+                            len(bags), HOST_REPS)
+        med = float(np.median(steps))
+        out[kind] = {"step_ms": 1e3 / med, "launches": prof["launches"] / 8,
+                     "busy": prof["busy_share"], "train_bags_s": med,
+                     "eval_bags_s": float(np.median(evals))}
+        print(f"15d {kind} per-bag step (bs 1, {feats.shape[1]} × "
+              f"{feats.shape[2]}, {cfg['optimizer']}): "
+              f"{1e3 / med:.3f} ms a step ({med:.1f} bags/s, "
+              f"{steps[0]:.1f}–{steps[-1]:.1f}, {HOST_REPS} epochs of "
+              f"{MIL_STEPS} steps); {prof['launches'] / 8:.0f} launches a "
+              f"step, busy share {prof['busy_share']:.3f}; evaluation "
+              f"{float(np.median(evals)):.1f} bags/s ({len(bags)} bags in "
+              f"batches of {TM.EVAL_CHUNK}) (host clock)")
+    return out
+
+
+def mil_chain(device, root, config, mae):
+    """Phase 15: MIL cross-validation on phase 14's latents through
+    ``cli.use_latent`` (both modes), the card against the CPU, times →
+    numbers for PERF.md."""
+    frame_path = root / "dataframes_latents" / \
+        "patch_level_latents_train_df.pkl"
+    walls, bags, labels = mil_single_frame(device, root, config, frame_path)
+    sweep = mil_sweep(device, root, config, mae)
+    worst = mil_card_vs_cpu(device, bags[0])
+    times = time_mil(device, bags, labels)
+    return {"walls": walls, "sweep": sweep, "worst": worst, "times": times}
 
 
 def _write_yaml(root: Path, name: str, config: dict) -> Path:
@@ -3590,6 +4035,21 @@ def main() -> int:
           f"{rad_cli['reduce_s']:.1f} s; save_latent "
           f"{_spread(mae_cli['latent_img_s'])}; wall "
           f"{time.perf_counter() - t_start:.1f} s")
+
+    # 15. MIL cross-validation on phase 14's latents through cli.use_latent:
+    # single-frame mode (mil, graph-mil), the checkpoint sweep (B9 in the
+    # re-extraction), the card against the CPU, times
+    t15 = time.perf_counter()
+    mil = mil_chain(device, cli["root"], cli["config"], mae_cli)
+    print(f"phase 15 (MIL CLIs) {time.perf_counter() - t15:.1f} s: "
+          f"single-frame mil {mil['walls']['mil']:.1f} s, graph-mil "
+          f"{mil['walls']['graph-mil']:.1f} s; sweep "
+          f"{mil['sweep']['wall']:.1f} s ({mil['sweep']['b9']} B9 launches, "
+          f"{mil['sweep']['forwards']} forwards); per-bag step "
+          + ", ".join(f"{k} {v['step_ms']:.2f} ms ({v['launches']:.0f} "
+                      f"launches, busy {v['busy']:.3f})"
+                      for k, v in mil["times"].items())
+          + f"; wall {time.perf_counter() - t_start:.1f} s")
 
     med, bound, b_bytes, b_ops = warp_times[BATCH]
     totals["affine_warp_batch"] = [med["kernel"], med["plain"], bound, b_bytes,

@@ -63,15 +63,19 @@ def bt601_gray(r, g, b):
 @contextlib.contextmanager
 def full_float32():
     """Matrix products and convolutions in full float32 (no TF32) inside
-    the block, whatever the global flags; restored after."""
-    prec = torch.get_float32_matmul_precision()
+    the block, whatever the global flags; restored after.  The products'
+    setting is read and written through cuBLAS's own flag
+    (``torch.backends.cuda.matmul.fp32_precision``): the process-wide
+    ``get_float32_matmul_precision`` raises once a caller has mixed the
+    legacy ``allow_tf32`` flag with the newer setters."""
+    matmul = torch.backends.cuda.matmul.fp32_precision
     cudnn = torch.backends.cudnn.allow_tf32
-    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
     torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prec)
+        torch.backends.cuda.matmul.fp32_precision = matmul
         torch.backends.cudnn.allow_tf32 = cudnn
 
 

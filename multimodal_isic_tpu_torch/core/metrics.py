@@ -3,14 +3,16 @@
 Counterpart of ``multimodal_isic_tpu/core/metrics.py``: the definitions the
 reference uses (``balanced_accuracy_score`` / ``classification_report``,
 ``net_utils.py:110-123``; ``precision_recall_fscore_support``,
-``utils_g_mil.py:172-187``).  Predictions come back from the device once per
-batch, so the metrics run on the host.  ``classification_report`` renders the
-same string as the JAX package's, byte for byte.
+``utils_g_mil.py:172-187``; ``roc_auc_score(multi_class='ovr')``, the MIL
+trainables' 10-metric bundle :func:`evaluate_probs`).  Predictions come back
+from the device once per batch or split, so the metrics run on the host.
+``classification_report`` renders the same string as the JAX package's,
+byte for byte.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -35,6 +37,41 @@ def balanced_accuracy(y_true: np.ndarray, y_pred: np.ndarray,
     present = support > 0
     recall = np.where(present, cm.diagonal() / np.maximum(support, 1.0), 0.0)
     return float(recall.sum() / max(int(present.sum()), 1))
+
+
+def _tie_averaged_ranks(scores: np.ndarray) -> np.ndarray:
+    """1-based average ranks with tie correction (Mann-Whitney
+    convention)."""
+    order = np.sort(scores)
+    c_less = np.searchsorted(order, scores, side="left")
+    c_leq = np.searchsorted(order, scores, side="right")
+    return c_less + (c_leq - c_less + 1) / 2.0
+
+
+def binary_auc(y_true01: np.ndarray, scores: np.ndarray) -> float:
+    """ROC AUC of a binary problem by the rank statistic (tie-aware); NaN
+    where one side is empty."""
+    y_true01 = np.asarray(y_true01)
+    ranks = _tie_averaged_ranks(np.asarray(scores))
+    n_pos = float(np.sum(y_true01))
+    n_neg = len(y_true01) - n_pos
+    u = float(np.sum(ranks[y_true01 > 0])) - n_pos * (n_pos + 1.0) / 2.0
+    denom = n_pos * n_neg
+    return u / denom if denom > 0 else float("nan")
+
+
+def roc_auc_ovr(y_true: np.ndarray, y_score: np.ndarray,
+                num_classes: int) -> float:
+    """Macro one-vs-rest AUC, ``roc_auc_score(y_true, y_score,
+    multi_class='ovr')``.  sklearn raises where a class is absent from
+    ``y_true`` and the reference turns that into NaN
+    (``utils_g_mil.py:175-178``): NaN here too."""
+    y_true = np.asarray(y_true)
+    counts = np.bincount(y_true, minlength=num_classes)
+    if not np.all(counts[:num_classes] > 0):
+        return float("nan")
+    return float(np.mean([binary_auc(y_true == c, y_score[:, c])
+                          for c in range(num_classes)]))
 
 
 def precision_recall_fscore(y_true: np.ndarray, y_pred: np.ndarray,
@@ -66,6 +103,32 @@ def precision_recall_fscore(y_true: np.ndarray, y_pred: np.ndarray,
         "per_class_precision": precision, "per_class_recall": recall,
         "per_class_f1": f1, "support": support,
     }
+
+
+def evaluate_probs(y_true: np.ndarray, y_score: np.ndarray,
+                   num_classes: int, loss: Optional[float] = None
+                   ) -> Dict[str, float]:
+    """The 10-metric bundle of the MIL trainables (``utils_g_mil.py:
+    150-187``): acc, bacc, auc, macro and weighted P/R/F1, and ``loss``
+    where given."""
+    y_true = np.asarray(y_true)
+    y_score = np.asarray(y_score)
+    y_pred = np.argmax(y_score, axis=1)
+    macro = precision_recall_fscore(y_true, y_pred, num_classes, "macro")
+    weighted = precision_recall_fscore(y_true, y_pred, num_classes,
+                                       "weighted")
+    out = {
+        "acc": accuracy(y_true, y_pred),
+        "bacc": balanced_accuracy(y_true, y_pred, num_classes),
+        "auc": roc_auc_ovr(y_true, y_score, num_classes),
+        "macro_p": macro["precision"], "macro_r": macro["recall"],
+        "macro_f1": macro["f1"],
+        "weighted_p": weighted["precision"],
+        "weighted_r": weighted["recall"], "weighted_f1": weighted["f1"],
+    }
+    if loss is not None:
+        out["loss"] = float(loss)
+    return out
 
 
 def classification_report(y_true: np.ndarray, y_pred: np.ndarray,

@@ -12,7 +12,9 @@ state dict it holds.  Returns a state dict for
 ``blocks.<i>``), or, through :func:`convmae_state_dict`, for
 ``models.convmae.ConvMAE`` (the upstream ConvMAE checkpoint naming); a JAX
 ``OptState`` of a ConvMAE becomes the port's AdamW state through
-:func:`convmae_adamw_state`.
+:func:`convmae_adamw_state`.  :func:`mil_state_dict` and
+:func:`graph_mil_state_dict` carry ``AttentionMIL`` and ``GraphMIL`` params
+over (the port keeps flax's module names there).
 
 Leaf mappings:
 - Dense ``kernel`` [in, out] → ``weight`` [out, in];
@@ -21,7 +23,9 @@ Leaf mappings:
 - BatchNorm / LayerNorm ``scale`` → ``weight``, ``bias`` → ``bias``;
   ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``;
 - ``Embed.embedding`` → ``Embedding.weight``;
-- the fusion ``weights`` vector → the ``weights`` Parameter.
+- the fusion ``weights`` vector → the ``weights`` Parameter;
+- GAT's ``att_src`` / ``att_dst``, GIN's ``eps`` → the Parameters of the
+  same name, as they are.
 """
 
 from __future__ import annotations
@@ -74,6 +78,31 @@ def flax_to_state_dict(params: Dict[str, Any],
         out[key] = torch.from_numpy(np.array(a, np.float32, order="C"))
     for path, a in _leaves(batch_stats or {}):
         key = _module_key(path[:-1] + (_STATS[path[-1]],))
+        out[key] = torch.from_numpy(np.array(a, np.float32, order="C"))
+    return out
+
+
+def mil_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``AttentionMIL`` params → the port's ``models.mil.AttentionMIL``
+    state dict (four Dense layers, flax's names)."""
+    return flax_to_state_dict(params)
+
+
+_AS_IS = ("att_src", "att_dst", "eps")
+
+
+def graph_mil_state_dict(params: Dict[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """JAX ``GraphMIL`` params → the port's ``models.graph_mil.GraphMIL``
+    state dict: Dense kernels transposed, LayerNorm ``scale`` → ``weight``,
+    GAT's ``att_src`` / ``att_dst`` / ``bias`` and GIN's ``eps`` as they
+    are."""
+    out = {}
+    for path, a in _leaves(params):
+        if path[-1] in _AS_IS:
+            key = _module_key(path)
+        else:
+            key, a = _param(path, a)
         out[key] = torch.from_numpy(np.array(a, np.float32, order="C"))
     return out
 
