@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, radiomics and ConvMAE
 slices, of the first-order and bare-MLP entry points and of the CLIs (MIL
-cross-validation included), on one CUDA card.
+cross-validation and the MIL search included), on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -150,7 +150,24 @@ width with random weights from a seed:
    seeded weights, the card against the CPU (eval forward within
    ``MIL_FWD_TOL``, one step's gradients within ``MIL_GRAD_TOL``, the kNN
    graph bit for bit with TF32 on); times the per-bag step (ms, launches,
-   busy share), a training epoch's and an evaluation's bags/s.
+   busy share), a training epoch's and an evaluation's bags/s;
+16. the MIL search on phase 14's latents, every launch count at 0 before
+   each run and still 0 after it (the search launches no kernel):
+   ``cli.tune_mil`` at ``mil`` and ``graph-mil``, ``--packed auto`` and
+   ``never``, 8 samples of 4 epochs at ASHA grace 1, rf 2 (depth cuts of
+   the CLI's 1000 samples × 200 epochs at grace 10: the artifacts, finite
+   val_bacc, no trial error, ``best_config`` in the space); a cohort member
+   against the sequential trial at dropout 0, ``best_params*`` widths, 40
+   bags of 196 × 768, 2 epochs (each epoch's val_bacc equal, val_loss
+   within ``MEMBER_LOSS_RTOL``); the graph space's large end (GAT 512 × 8
+   heads concat × 8 layers) at 196 × 768: parameter MB a trial, the
+   sub-cohort the card's budget gives, one epoch over 16 bags (a depth cut)
+   with finite losses, the peak memory under the budget; the per-bag
+   cohort step at P 1, 2, 4, 8 for both models (ms, launches, busy share,
+   trial-bags/s); on 96 de-saturated 196 × 768 bags (30% of the labels
+   moved; 16 / 8 samples in cohorts of 8, 6 / 4 epochs: depth cuts), the
+   packed search with ASHA against it without a scheduler, and against the
+   sequential runner given the packed run's wall time.
 
 Float32 on the card runs in full float32 here: TF32 is off for cuDNN and
 cuBLAS throughout (``torch.backends.cudnn.allow_tf32 = False``).
@@ -3748,6 +3765,387 @@ def mil_chain(device, root, config, mae):
     return {"walls": walls, "sweep": sweep, "worst": worst, "times": times}
 
 
+HPO_SAMPLES = 8        # depth cut: cli.tune_mil's default is 1000 samples
+HPO_EPOCHS = 4         # depth cut: its default is 200 epochs
+HPO_GRACE, HPO_RF = 1, 2   # ASHA: the CLI's grace 10 cut with the epochs
+HPO_MEMBER_BAGS, HPO_MEMBER_EPOCHS = 40, 2   # 16b: 32 train + 8 val bags
+MEMBER_LOSS_RTOL = 1e-4
+HPO_LARGE_BAGS = 20    # 16c: 16 train + 4 val bags of 196 × 768
+HPO_COHORTS = (1, 2, 4, 8)
+HPO_STEPS = 16         # 16d: timed per-bag cohort steps
+# 16e: de-saturated bags (30% of the labels moved to another class, so no
+# trial can reach 0.9 val_bacc), in cohorts of 8
+HPO_DESAT_BAGS, HPO_DESAT_CLASSES, HPO_FLIP = 96, 4, 0.3
+HPO_DESAT = {"mil": (16, 6), "graph-mil": (8, 4)}   # samples, epochs
+DESAT_CEILING = 0.9
+# the graph space's large end (tune_mil.py:172-200): GAT 512 × 8 heads,
+# concatenated, 8 layers, pooling 512 × 8, the deep classifier at 512
+LARGE_END = {"gnn_type": "gat", "gnn_hidden": 512, "gnn_layers": 8,
+             "gnn_heads": 8, "gnn_concat": True, "graph_type": "grid",
+             "k_neighbors": 8, "connect_diagonals": False, "att_dim": 512,
+             "att_heads": 8, "classifier_dim": 512,
+             "classifier_light": False, "use_residual": True,
+             "use_layer_norm": True, "optimizer": "adamw"}
+
+
+def _hpo_bags(n, classes, seed, flip=0.0):
+    """``n`` bags of 196 × 768 float32 patches, labels cycling over
+    ``classes``: N(0, 1) noise, and an eighth of each bag's patches shifted
+    by 2 along its class's unit direction; a share ``flip`` of the labels
+    then moved to another class → the trainables' data dict."""
+    rng = np.random.RandomState(seed)
+    labels = np.arange(n) % classes
+    dirs = rng.randn(classes, MIL_DIM).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    bags = []
+    for i in range(n):
+        x = rng.randn(MIL_NODES, MIL_DIM).astype(np.float32)
+        x[:MIL_NODES // 8] += 2.0 * dirs[labels[i]]
+        bags.append(x)
+    moved = rng.permutation(n)[:int(round(flip * n))]
+    labels[moved] = (labels[moved] + rng.randint(1, classes, len(moved))) \
+        % classes
+    return {"train_feats": bags, "train_labels": labels}
+
+
+def _no_launch(label, fn):
+    """``fn()`` with every launch count set to 0 before it; fails if a
+    kernel launched."""
+    _reset_every_launch()
+    out = fn()
+    torch.cuda.synchronize()
+    launched = _launched()
+    if launched:
+        raise AssertionError(f"{label}: kernel launches {launched}")
+    return out
+
+
+def _in_space(label, space, cfg):
+    """Every key of ``space`` in ``cfg`` and in its support."""
+    from multimodal_isic_tpu_torch.hpo.space import Choice, QRandInt
+    if set(cfg) != set(space):
+        raise AssertionError(f"{label}: keys {sorted(cfg)}")
+    for k, spec in space.items():
+        v = cfg[k]
+        if isinstance(spec, Choice):
+            ok = v in spec.options
+        elif isinstance(spec, QRandInt):
+            ok = spec.low <= v <= spec.high and float(v).is_integer()
+        else:
+            ok = spec.low * (1 - 1e-12) <= v <= spec.high * (1 + 1e-12)
+        if not ok:
+            raise AssertionError(f"{label}: {k}={v!r} outside {spec}")
+
+
+def hpo_cli(device, root, config, frame_path):
+    """16a: ``cli.tune_mil`` on phase 14's patch frame, ``mil`` and
+    ``graph-mil``, ``--packed auto`` and ``never`` → wall seconds."""
+    import yaml
+    import pandas as pd
+    from multimodal_isic_tpu_torch.cli import tune_mil as TTM
+    from multimodal_isic_tpu_torch.hpo import GRAPH_MIL_SPACE, MIL_SPACE
+    cfg = json.loads(json.dumps(config))
+    cfg.update(num_classes=7)
+    path = _write_yaml(root, "tune_mil", cfg)
+    walls = {}
+    for kind in ("mil", "graph-mil"):
+        space = GRAPH_MIL_SPACE if kind == "graph-mil" else MIL_SPACE
+        for packed in ("auto", "never"):
+            label = f"16a {kind} --packed {packed}"
+            out_dir = root / f"hpo_{kind}_{packed}"
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out, lines = _no_launch(label, lambda: _quiet(lambda: TTM.main([
+                "--config_path", str(path), "--model_type", kind,
+                "--num_samples", str(HPO_SAMPLES),
+                "--max_epochs", str(HPO_EPOCHS),
+                "--grace_period", str(HPO_GRACE),
+                "--reduction_factor", str(HPO_RF), "--packed", packed,
+                "--patch_df", str(frame_path),
+                "--output_dir", str(out_dir)])))
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            names = sorted(p.name for p in out_dir.iterdir())
+            if [n.split("_")[0] for n in names] != ["best", "hpo"]:
+                raise AssertionError(f"{label}: artifacts {names}")
+            table = pd.read_csv(out_dir / names[1])
+            best = yaml.safe_load((out_dir / names[0]).read_text())
+            errors = [t.error for t in out.get("trials", []) if t.error]
+            if errors:
+                raise AssertionError(f"{label}: failed trials {errors}")
+            vals = table["val_bacc"].astype(float)
+            if len(table) != HPO_SAMPLES or not np.isfinite(vals).all():
+                raise AssertionError(f"{label}: {len(table)} rows, "
+                                     f"val_bacc {vals.tolist()}")
+            if best["best_config"] != out["best_config"] or peak == 0:
+                raise AssertionError(f"{label}: best {best}, peak {peak}")
+            _in_space(label, space, best["best_config"])
+            n_stop = int(table["stopped_early"].astype(bool).sum())
+            print("\n".join(f"  cli.tune_mil {kind} {packed}: {ln}"
+                            for ln in lines if ln.startswith(
+                                ("Packed", "Best val", "cohort"))))
+            print(f"{label} ({HPO_SAMPLES} samples, {HPO_EPOCHS} epochs, "
+                  f"ASHA grace {HPO_GRACE} rf {HPO_RF}): {wall:.1f} s, peak "
+                  f"{peak / 2**30:.3f} GiB, no kernel launch; "
+                  f"{len(table)} finite rows, {n_stop} ASHA-stopped, best "
+                  f"val_bacc {vals.max():.4f}; best_config in the space; "
+                  f"no trial error")
+            walls[f"{kind} {packed}"] = wall
+    return walls
+
+
+def hpo_member(device):
+    """16b: a cohort member against the sequential trial, dropout 0, at the
+    best-params widths on 196 × 768 bags: every epoch's val_bacc equal and
+    val_loss within ``MEMBER_LOSS_RTOL``."""
+    from multimodal_isic_tpu_torch.hpo import population as HP
+    from multimodal_isic_tpu_torch.train import mil as TM
+    best_mil, best_graph = _best_params()
+    data = _hpo_bags(HPO_MEMBER_BAGS, 7, SEED + 60)
+    worst = {}
+    for kind, cfg, rate_keys, shape_keys in (
+            ("mil", {**best_mil, "dropout": 0.0}, ("dropout",),
+             HP.SHAPE_KEYS),
+            ("graph-mil", {**best_graph, "gnn_dropout": 0.0,
+                           "pool_dropout": 0.0},
+             ("gnn_dropout", "pool_dropout"), HP.GRAPH_SHAPE_KEYS)):
+        seq_rec, pop_rec = [], {}
+        kw = dict(seed=SEED, num_classes=7, patience=HPO_MEMBER_EPOCHS,
+                  max_epochs=HPO_MEMBER_EPOCHS, device=device)
+        trainable = TM.train_graph_mil if kind == "graph-mil" \
+            else TM.train_mil
+        packed = HP.train_graph_mil_population if kind == "graph-mil" \
+            else HP.train_mil_population
+        lr, wd = float(cfg["lr"]), float(cfg["weight_decay"])
+        pop = {"lr": np.array([lr, 3 * lr]), "weight_decay": np.full(2, wd),
+               **{k: np.zeros(2) for k in rate_keys}}
+        shape = {k: cfg[k] for k in shape_keys if k in cfg}
+
+        def run():
+            trainable(cfg, data, report_fn=lambda r: seq_rec.append(r)
+                      if "val_macro_p" in r else None, **kw)
+            packed(shape, pop, data, report_fn=lambda t, m: pop_rec.setdefault(
+                t, []).append(m) if "val_macro_p" in m else None, **kw)
+        _no_launch(f"16b {kind}", run)
+        member = pop_rec[0]
+        if not len(member) == len(seq_rec) == HPO_MEMBER_EPOCHS:
+            raise AssertionError(f"16b {kind}: epochs {len(member)}, "
+                                 f"{len(seq_rec)}")
+        rel = max(abs(m["val_loss"] - s["val_loss"]) / abs(s["val_loss"])
+                  for m, s in zip(member, seq_rec))
+        if any(m["val_bacc"] != s["val_bacc"] for m, s in zip(member,
+                                                              seq_rec)) \
+                or rel > MEMBER_LOSS_RTOL:
+            raise AssertionError(
+                f"16b {kind}: member {[(m['val_bacc'], m['val_loss']) for m in member]} "
+                f"vs sequential {[(s['val_bacc'], s['val_loss']) for s in seq_rec]}")
+        worst[kind] = rel
+        print(f"16b {kind} cohort member (P 2: lr {lr:g} and {3 * lr:g}) vs "
+              f"the sequential trial at {cfg['optimizer']}, dropout 0, "
+              f"{HPO_MEMBER_BAGS} bags of {MIL_NODES} × {MIL_DIM}, "
+              f"{HPO_MEMBER_EPOCHS} epochs, TF32 off: val_bacc equal "
+              f"{[round(s['val_bacc'], 4) for s in seq_rec]}, val_loss "
+              f"within {rel:.2e} relative (tolerance {MEMBER_LOSS_RTOL}); "
+              f"the lr {3 * lr:g} member's val_loss "
+              f"{pop_rec[1][-1]['val_loss']:.5f} vs {member[-1]['val_loss']:.5f}")
+    return worst
+
+
+def hpo_large_end(device):
+    """16c: the graph space's large end at 196 × 768: the per-trial
+    parameter bytes, the sub-cohort the card's budget gives, one epoch over
+    16 bags, the peak memory against the budget."""
+    from multimodal_isic_tpu_torch.hpo import population as HP
+    mb = HP.estimate_trial_param_bytes("graph-mil", LARGE_END, MIL_DIM,
+                                       7) / 1e6
+    budget = HP.memory_budget_bytes(device)
+    sub = HP.max_cohort_for_shape("graph-mil", LARGE_END, MIL_DIM, 7, 8,
+                                  device)
+    data = _hpo_bags(HPO_LARGE_BAGS, 7, SEED + 61)
+    pop = {"lr": np.geomspace(1e-6, 1e-3, sub),
+           "weight_decay": np.geomspace(1e-8, 1e-3, sub),
+           "gnn_dropout": np.full(sub, 0.5), "pool_dropout": np.full(sub,
+                                                                     0.3)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reps = _no_launch("16c", lambda: HP.train_graph_mil_population(
+        LARGE_END, pop, data, seed=SEED, num_classes=7, patience=1,
+        max_epochs=1, device=device))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["val_loss"] for r in reps]
+    print(f"16c graph space's large end (GAT {LARGE_END['gnn_hidden']} × "
+          f"{LARGE_END['gnn_heads']} heads concat × "
+          f"{LARGE_END['gnn_layers']} layers, pooling "
+          f"{LARGE_END['att_dim']} × {LARGE_END['att_heads']}, classifier "
+          f"{LARGE_END['classifier_dim']}) at {MIL_NODES} × {MIL_DIM}: "
+          f"{mb:.1f} MB of parameters a trial; budget "
+          f"{budget / 2**30:.2f} GiB → sub-cohort {sub}; one epoch over "
+          f"{int(HPO_LARGE_BAGS * 0.8)} bags in {wall:.1f} s, val losses "
+          f"{[round(v, 4) for v in losses]}, peak "
+          f"{peak / 2**30:.2f} GiB")
+    if not np.isfinite(losses).all() or peak > budget or len(reps) != sub:
+        raise AssertionError("16c: non-finite losses or over the budget")
+    return {"mb": mb, "sub": sub, "peak_gib": peak / 2**30,
+            "budget_gib": budget / 2**30, "wall": wall}
+
+
+def time_cohorts(device, bags, labels, seq_times):
+    """16d: the per-bag cohort step at P = 1, 2, 4, 8 on phase 14's bags
+    at the best-params widths and rates: ms a step, launches a step, busy
+    share, trial-bags/s (host clock)."""
+    from multimodal_isic_tpu_torch.core.rng import generator
+    from multimodal_isic_tpu_torch.hpo import population as HP
+    from multimodal_isic_tpu_torch.train import mil as TM
+    best_mil, best_graph = _best_params()
+    feats, valid = TM.pad_bags(bags)
+    labels = np.asarray(labels)
+    order = np.random.RandomState(SEED).choice(len(bags), HPO_STEPS)
+    out = {}
+    for kind, cfg in (("mil", best_mil), ("graph-mil", best_graph)):
+        if kind == "mil":
+            spec = HP.mil_spec(cfg, 7)
+            shape = {k: cfg[k] for k in HP.SHAPE_KEYS}
+        else:
+            spec = HP.graph_mil_spec(cfg, 7)
+            shape = {k: cfg[k] for k in HP.GRAPH_SHAPE_KEYS if k in cfg}
+        split = TM.BagSplit(feats, valid, labels, device, spec.graph_cfg)
+        gen = generator(SEED, device)
+        for p in HPO_COHORTS:
+            pop = {"lr": np.full(p, float(cfg["lr"])),
+                   "weight_decay": np.full(p, float(cfg["weight_decay"])),
+                   **{k: np.full(p, float(cfg[k])) for k in spec.rate_keys}}
+            cohort = HP.make_cohort(spec, shape, pop, feats.shape[-1], SEED,
+                                    device)
+
+            def steps(bs=order):
+                for b in bs.tolist():
+                    cohort.step(split.feats[b], split.valid[b],
+                                split.graph(b), split.y[b], gen)
+            rates = _no_launch(f"16d {kind} P {p}", lambda: _host_rates(
+                steps, HPO_STEPS, HOST_REPS))
+            prof = _no_launch(f"16d {kind} P {p} profile",
+                              lambda: profile_steps(
+                                  lambda: steps(order[:8]),
+                                  f"{kind} cohort P {p}, 8 per-bag steps",
+                                  steps=1))
+            med = float(np.median(rates))
+            out[(kind, p)] = {"step_ms": 1e3 / med,
+                              "launches": prof["launches"] / 8,
+                              "busy": prof["busy_share"],
+                              "trial_bags_s": p * med}
+            seq = seq_times.get(kind, {}).get("step_ms")
+            print(f"16d {kind} cohort step P {p} ({feats.shape[1]} × "
+                  f"{feats.shape[2]}, {cfg['optimizer']}, dropout as "
+                  f"best_params): {1e3 / med:.3f} ms a step "
+                  f"({rates[0]:.1f}–{rates[-1]:.1f} steps/s, {HOST_REPS} "
+                  f"runs of {HPO_STEPS}); {prof['launches'] / 8:.0f} "
+                  f"launches a step, busy share {prof['busy_share']:.3f}; "
+                  f"{p * med:.1f} trial-bags/s"
+                  + (f" (phase 15's sequential step {seq:.3f} ms: "
+                     f"{1e3 / seq:.1f} trial-bags/s)" if seq else "")
+                  + " (host clock)")
+            del cohort
+        del split
+    return out
+
+
+class _OutOfTime(Exception):
+    """A sequential trial started after the packed search's wall time."""
+
+
+def hpo_pruning(device):
+    """16e: on de-saturated 196 × 768 bags, the packed search with ASHA
+    against the same search without a scheduler (stopped trials, trial
+    epochs, wall), and against the sequential runner given the packed
+    run's wall time (best val_bacc) → numbers for PERF.md."""
+    from multimodal_isic_tpu_torch.hpo import (ASHAScheduler,
+                                               GRAPH_MIL_SPACE, MIL_SPACE,
+                                               run_population_search,
+                                               run_search)
+    from multimodal_isic_tpu_torch.train import mil as TM
+    data = _hpo_bags(HPO_DESAT_BAGS, HPO_DESAT_CLASSES, SEED + 62, HPO_FLIP)
+    out = {}
+    for kind, (samples, epochs) in HPO_DESAT.items():
+        space = GRAPH_MIL_SPACE if kind == "graph-mil" else MIL_SPACE
+        trainable = TM.train_graph_mil if kind == "graph-mil" \
+            else TM.train_mil
+        kw = dict(seed=SEED, max_epochs=epochs, patience=epochs,
+                  num_classes=HPO_DESAT_CLASSES)
+
+        def asha():
+            return ASHAScheduler(grace_period=HPO_GRACE,
+                                 reduction_factor=HPO_RF, max_t=epochs)
+
+        def packed(sched):
+            t0 = time.perf_counter()
+            res = run_population_search(
+                space, data, num_samples=samples, cohort_size=8,
+                verbose=False, scheduler=sched, model_type=kind,
+                device=device, **kw)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+        (pa, wall_a), (pn, wall_n) = _no_launch(
+            f"16e {kind} packed", lambda: (packed(asha()), packed(None)))
+        t_seq = time.perf_counter()
+
+        def budgeted(config, d, **k):
+            if time.perf_counter() - t_seq > wall_a:
+                raise _OutOfTime
+            return trainable(config, d, **k)
+        seq = _no_launch(f"16e {kind} sequential", lambda: run_search(
+            budgeted, space, data, num_samples=64, scheduler=asha(),
+            verbose=False, max_failures=10**6, device=device, **kw))
+        wall_s = time.perf_counter() - t_seq
+        ran = [t for t in seq["trials"] if not t.error]
+        bad = [t.error for t in seq["trials"]
+               if t.error and not t.error.startswith("_OutOfTime")]
+        if bad:
+            raise AssertionError(f"16e {kind} sequential: {bad}")
+        ra, rn = pa["results"], pn["results"]
+        best = {"packed ASHA": float(ra["val_bacc"].max()),
+                "packed, no scheduler": float(rn["val_bacc"].max()),
+                "sequential ASHA": max(t.final["val_bacc"] for t in ran)}
+        if max(best.values()) >= DESAT_CEILING or not all(
+                np.isfinite(v) for v in best.values()):
+            raise AssertionError(f"16e {kind}: not de-saturated {best}")
+        n_stop = int(ra["stopped_early"].astype(bool).sum())
+        ep_a, ep_n = int(ra["epochs_run"].sum()), int(rn["epochs_run"].sum())
+        print(f"16e {kind} on {HPO_DESAT_BAGS} de-saturated bags of "
+              f"{MIL_NODES} × {MIL_DIM} ({HPO_DESAT_CLASSES} classes, "
+              f"{HPO_FLIP:.0%} of the labels moved), {samples} samples in "
+              f"cohorts of 8, {epochs} epochs, ASHA grace {HPO_GRACE} rf "
+              f"{HPO_RF}: packed + ASHA {wall_a:.1f} s, {n_stop} stopped "
+              f"early, {ep_a} trial-epochs, best val_bacc "
+              f"{best['packed ASHA']:.4f}; packed without a scheduler "
+              f"{wall_n:.1f} s, {ep_n} trial-epochs, best "
+              f"{best['packed, no scheduler']:.4f}; sequential + ASHA in "
+              f"the packed run's time: {len(ran)} trials in {wall_s:.1f} s, "
+              f"best {best['sequential ASHA']:.4f} (host clock)")
+        out[kind] = {"asha_wall": wall_a, "none_wall": wall_n,
+                     "stopped": n_stop, "epochs": (ep_a, ep_n),
+                     "seq_trials": len(ran), "seq_wall": wall_s,
+                     "best": best}
+    return out
+
+
+def hpo_chain(device, root, config, seq_times):
+    """Phase 16: the MIL search on the card → numbers for PERF.md."""
+    import pandas as pd
+    from multimodal_isic_tpu_torch.analysis.bags import build_patient_bags
+    frame_path = root / "dataframes_latents" / \
+        "patch_level_latents_train_df.pkl"
+    walls = hpo_cli(device, root, config, frame_path)
+    member = hpo_member(device)
+    large = hpo_large_end(device)
+    bags, labels, _ = build_patient_bags(pd.read_pickle(frame_path))
+    steps = time_cohorts(device, bags, labels, seq_times)
+    pruning = hpo_pruning(device)
+    return {"walls": walls, "member": member, "large": large,
+            "steps": steps, "pruning": pruning}
+
+
 def _write_yaml(root: Path, name: str, config: dict) -> Path:
     import yaml
     path = root / f"{name}.yml"
@@ -4049,6 +4447,20 @@ def main() -> int:
           + ", ".join(f"{k} {v['step_ms']:.2f} ms ({v['launches']:.0f} "
                       f"launches, busy {v['busy']:.3f})"
                       for k, v in mil["times"].items())
+          + f"; wall {time.perf_counter() - t_start:.1f} s")
+
+    # 16. the MIL search through cli.tune_mil (packed and sequential, mil
+    # and graph-mil), a cohort member against the sequential trial, the
+    # graph space's large end, the cohort step at P 1-8, ASHA's pruning and
+    # packed against sequential at equal wall clock
+    t16 = time.perf_counter()
+    hpo = hpo_chain(device, cli["root"], cli["config"], mil["times"])
+    print(f"phase 16 (MIL search) {time.perf_counter() - t16:.1f} s: "
+          + ", ".join(f"tune_mil {k} {v:.1f} s"
+                      for k, v in hpo["walls"].items())
+          + "; cohort step P 8 "
+          + ", ".join(f"{k} {hpo['steps'][(k, 8)]['step_ms']:.2f} ms"
+                      for k in ("mil", "graph-mil"))
           + f"; wall {time.perf_counter() - t_start:.1f} s")
 
     med, bound, b_bytes, b_ops = warp_times[BATCH]

@@ -28,7 +28,7 @@ Submodule names are flax's (``input_proj``, ``gnn_{i}``, ``ln_{i}``,
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -38,6 +38,7 @@ from .convmae import LayerNorm
 
 NEG_INF = -1e30
 Rate = Union[float, torch.Tensor]
+Draws = Union[torch.Generator, Callable[..., torch.Tensor]]
 
 
 def _with_self_loops(adj: torch.Tensor) -> torch.Tensor:
@@ -47,16 +48,21 @@ def _with_self_loops(adj: torch.Tensor) -> torch.Tensor:
 
 
 def _dropout(h: torch.Tensor, rate: Rate, train: bool,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+             generator: Optional[Draws]) -> torch.Tensor:
     """Dropout with a float or 0-d tensor ``rate`` (JAX :38-50): keep a
     unit where ``u < 1 − rate`` for u drawn uniform from ``generator``,
     scale kept units by 1 / keep.  Identity outside training and at a float
-    rate of 0."""
+    rate of 0.  ``generator`` is a ``torch.Generator`` (or None), or a draw
+    function ``(shape, device, dtype) → u`` (the HPO cohorts' per-trial
+    streams, ``hpo.population``)."""
     if not train or (not torch.is_tensor(rate) and float(rate) == 0.0):
         return h
     keep = 1.0 - rate
-    u = torch.rand(h.shape, generator=generator, device=h.device,
-                   dtype=h.dtype)
+    if callable(generator):
+        u = generator(tuple(h.shape), h.device, h.dtype)
+    else:
+        u = torch.rand(h.shape, generator=generator, device=h.device,
+                       dtype=h.dtype)
     scale = (keep.clamp_min(1e-12) if torch.is_tensor(keep)
              else max(keep, 1e-12))
     return torch.where(u < keep, h / scale, torch.zeros_like(h))

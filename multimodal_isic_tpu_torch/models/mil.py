@@ -23,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .graph_mil import NEG_INF, _dropout
+from .graph_mil import NEG_INF, Draws, Rate, _dropout
 
 
 class AttentionMIL(nn.Module):
@@ -38,13 +38,16 @@ class AttentionMIL(nn.Module):
         self.classifier = nn.Linear(hidden_dim, num_classes)
 
     def forward(self, x: torch.Tensor, valid: Optional[torch.Tensor] = None,
-                train: bool = False,
-                generator: Optional[torch.Generator] = None
+                train: bool = False, generator: Optional[Draws] = None,
+                dropout_rate: Optional[Rate] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [..., N, input_dim]; valid [..., N] bool → (probs [...,
-        num_classes], attention [..., N, 1])."""
+        num_classes], attention [..., N, 1]).  ``dropout_rate`` overrides
+        the module's rate (a 0-d tensor: the HPO cohorts' per-trial rate,
+        JAX ``hpo/population.py:71-87``)."""
         h = F.relu(self.feat_fc(x))
-        h = _dropout(h, self.dropout, train, generator)
+        h = _dropout(h, self.dropout if dropout_rate is None
+                     else dropout_rate, train, generator)
         scores = self.att_fc2(torch.tanh(self.att_fc1(h)))  # [..., N, 1]
         if valid is not None:
             scores = scores.masked_fill(~valid[..., None], NEG_INF)

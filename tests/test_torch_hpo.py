@@ -1,0 +1,444 @@
+"""Port parity for the MIL hyperparameter search: ``hpo/{space,asha,
+distributed,runner,population}.py`` against the JAX package on the CPU.
+
+Tolerances:
+- spaces and ASHA decisions exact (both are the same numpy);
+- the runner: JAX's table (trial ids, configs, results) on one trainable, the best row the
+  table's max;
+- packed cohorts against JAX's, at dropout 0 from JAX's initial params
+  (the port's ``train.mil.init_params_`` replaced by JAX's draws): each
+  trial's per-epoch ``val_loss`` within ``RTOL_LOSS`` and ``val_bacc``
+  within ``ATOL_BACC`` (float32 sums in another order);
+- a cohort member against the port's sequential trial: ``val_bacc`` within
+  1e-5 and ``val_loss`` within 1e-4 relative, JAX's own bar
+  (``tests/test_hpo.py``);
+- compaction: a survivor's per-epoch metrics at dropout > 0 within 1e-6
+  of the same trial's in a run without compaction;
+- parameter bytes equal to JAX's ``eval_shape`` count.
+"""
+
+from datetime import timedelta
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from multimodal_isic_tpu.hpo import asha as JA
+from multimodal_isic_tpu.hpo import population as JP
+from multimodal_isic_tpu.hpo import runner as JR
+from multimodal_isic_tpu.hpo import space as JS
+from multimodal_isic_tpu.models import mil as JMIL
+from multimodal_isic_tpu.train import mil as JT
+from multimodal_isic_tpu_torch.hpo import asha as TA
+from multimodal_isic_tpu_torch.hpo import distributed as TD
+from multimodal_isic_tpu_torch.hpo import population as TP
+from multimodal_isic_tpu_torch.hpo import runner as TR
+from multimodal_isic_tpu_torch.hpo import space as TS
+from multimodal_isic_tpu_torch.models.convert import (graph_mil_state_dict,
+                                                      mil_state_dict)
+from multimodal_isic_tpu_torch.train import mil as TM
+
+RTOL_LOSS, ATOL_BACC = 1e-4, 1e-6
+NC, F_IN = 3, 6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch in this module: the suite runs several
+    workers at once, and torch's OpenMP threads spin against theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _data(seed=9, n=30, bag_n=9, test=0):
+    """``n`` bags of 7-9 patches × ``F_IN``, a class signal on one feature;
+    ``test`` test bags."""
+    rng = np.random.RandomState(seed)
+    labels = np.arange(n) % NC
+    bags = []
+    for i in range(n):
+        b = rng.randn(bag_n - rng.randint(0, 3), F_IN).astype(np.float32)
+        b[:, labels[i]] += 1.0
+        bags.append(b)
+    out = {"train_feats": bags, "train_labels": labels}
+    if test:
+        out.update(test_feats=[rng.randn(bag_n, F_IN).astype(np.float32)
+                               for _ in range(test)],
+                   test_labels=np.arange(test) % NC)
+    return out
+
+
+# ------------------------------------------------------ spaces and ASHA
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_space_draws_equal_jax(seed):
+    for jspace, tspace in ((JS.MIL_SPACE, TS.MIL_SPACE),
+                           (JS.GRAPH_MIL_SPACE, TS.GRAPH_MIL_SPACE)):
+        assert list(jspace) == list(tspace)
+        jr, tr = np.random.RandomState(seed), np.random.RandomState(seed)
+        for _ in range(40):
+            want, got = JS.sample_config(jspace, jr), TS.sample_config(
+                tspace, tr)
+            assert got == want
+            assert [type(v) for v in got.values()] == [
+                type(v) for v in want.values()]
+
+
+@pytest.mark.parametrize("mode", ["max", "min"])
+def test_asha_decisions_equal_jax(mode):
+    """A seeded stream of reports (16 trials, epochs 1-20 in arrival
+    order, NaN values among them): every decision and the rungs equal."""
+    rng = np.random.RandomState(3)
+    kw = dict(metric="val_bacc", mode=mode, grace_period=2,
+              reduction_factor=3, max_t=18)
+    js, ts = JA.ASHAScheduler(**kw), TA.ASHAScheduler(**kw)
+    assert ts.milestones() == js.milestones() == [2, 6]
+    steps = np.zeros(16, int)
+    live = set(range(16))
+    decisions = []
+    while live:
+        t = int(rng.choice(sorted(live)))
+        steps[t] += 1
+        value = float("nan") if rng.rand() < 0.05 else float(rng.rand())
+        res = {"val_bacc": value}
+        want = js.on_result(f"t{t}", int(steps[t]), res)
+        got = ts.on_result(f"t{t}", int(steps[t]), res)
+        assert got == want, (t, steps[t], value)
+        decisions.append(got)
+        if got == "stop" or steps[t] >= 20:
+            live.discard(t)
+    assert ts._rungs.keys() == js._rungs.keys()
+    for k in js._rungs:
+        np.testing.assert_array_equal(ts._rungs[k], js._rungs[k])
+    assert 0 < decisions.count("stop") < len(decisions)
+
+
+# ---------------------------------------------------------------- runner
+
+def _port_trainable(config, data, **kw):
+    """The port's ``train_mil`` on the CPU, under either runner."""
+    return TM.train_mil(config, data, **{**kw, "device": "cpu"})
+
+
+def test_run_search_matches_jax(tmp_path):
+    """JAX's ``run_search`` and the port's drive the same trainable (the
+    port's ``train_mil`` on the CPU; its parity with JAX's is
+    ``test_torch_mil.py``'s) with ASHA: the same table, trial ids, configs
+    (the same draws) and results, but the wall times and ``stopped_early``
+    of the trials that reach max_t; the artifacts; the best trial the
+    table's max."""
+    data = _data(n=24)
+    kw = dict(num_samples=4, max_epochs=3, patience=3, num_classes=NC,
+              seed=0, verbose=False)
+    want = JR.run_search(_port_trainable, JS.MIL_SPACE, data,
+                         scheduler=JA.ASHAScheduler(grace_period=1, max_t=3),
+                         **kw)
+    got = TR.run_search(TM.train_mil, TS.MIL_SPACE, data,
+                        scheduler=TA.ASHAScheduler(grace_period=1, max_t=3),
+                        output_dir=str(tmp_path), device="cpu", **kw)
+    res, jres = got["results"], want["results"]
+    assert list(res["trial_id"]) == [f"trial_{i:05d}" for i in range(4)]
+    pd.testing.assert_frame_equal(res.drop(columns=["wall_s", "stopped_early"]),
+                                  jres.drop(columns=["wall_s", "stopped_early"]))
+    # JAX's runner marks a trial that reaches the scheduler's max_t as
+    # stopped early; the port marks only the trials cut at a rung
+    ran = [len([r for r in t.reports if "val_macro_p" in r])
+           for t in got["trials"]]
+    assert list(res["stopped_early"]) == [n < 3 for n in ran]
+    assert list(jres["stopped_early"]) == [True] * 4
+    assert 0 < sum(n < 3 for n in ran) < 4  # ASHA cut some at a rung
+    assert not any(t.error for t in got["trials"])
+    assert np.isfinite(res["val_bacc"].astype(float)).all()
+    assert got["best_trial"].final["val_bacc"] == pytest.approx(
+        res["val_bacc"].astype(float).max())
+    assert got["best_config"] == want["best_config"] == got["trials"][int(
+        res["val_bacc"].astype(float).idxmax())].config
+    names = sorted(p.name for p in tmp_path.iterdir())
+    assert [n.split("_")[0] for n in names] == ["best", "hpo"]
+    assert pd.read_csv(tmp_path / names[1]).shape == res.shape
+
+
+def test_run_search_all_nan_raises_and_failures_abort():
+    def exploding(config, data, **kw):
+        assert kw["device"] == "cpu"
+        raise FloatingPointError("boom")
+
+    with pytest.raises(RuntimeError, match="NaN"):
+        TR.run_search(exploding, TS.MIL_SPACE, {}, num_samples=3,
+                      max_failures=5, seed=0, verbose=False, device="cpu")
+    with pytest.raises(RuntimeError, match="after 2 failed trials"):
+        TR.run_search(exploding, TS.MIL_SPACE, {}, num_samples=3,
+                      max_failures=2, seed=0, verbose=False, device="cpu")
+
+
+def test_run_search_asha_stop_keeps_best_so_far():
+    """An ASHA stop raised inside ``report_fn`` ends the trial with its
+    best-so-far summary: stopped early at a rung, not at max_t."""
+    def trainable(config, data, report_fn=None, **kw):
+        for v in (0.6, 0.4, 0.5, 0.1):
+            calls.append(v)
+            report_fn({"val_bacc": v, "val_loss": 1 - v, "val_macro_p": 0.0})
+        report_fn({"val_bacc": 0.9, "val_loss": 0.1})
+        return {"val_bacc": 0.9}
+
+    for max_t, other, seen, early in ((8, 0.9, [0.6, 0.4], True),
+                                      (3, 0.1, [0.6, 0.4, 0.5], False)):
+        calls = []
+        sched = TA.ASHAScheduler(grace_period=1, reduction_factor=2,
+                                 max_t=max_t)
+        sched.on_result("other", 2, {"val_bacc": other})  # rung 2's first
+        out = TR.run_search(trainable, TS.MIL_SPACE, {}, num_samples=1,
+                            seed=0, verbose=False, scheduler=sched,
+                            device="cpu")
+        (trial,) = out["trials"]
+        assert calls == seen and trial.stopped_early == early
+        assert trial.final == {"val_bacc": 0.6,
+                               "val_loss": pytest.approx(0.4)}
+
+
+# --------------------------------------------------------- packed cohorts
+
+MIL_SHAPE = {"hidden_dim": 8, "att_dim": 4}
+GRAPH_SHAPES = {
+    "gat": {"gnn_type": "gat", "gnn_hidden": 6, "gnn_layers": 2,
+            "gnn_heads": 2, "gnn_concat": True, "graph_type": "grid",
+            "k_neighbors": 4, "connect_diagonals": True, "att_dim": 4,
+            "att_heads": 2, "classifier_dim": 8, "classifier_light": False,
+            "use_residual": True, "use_layer_norm": True,
+            "optimizer": "adamw"},
+    "transformer": {"gnn_type": "transformer", "gnn_hidden": 6,
+                    "gnn_layers": 2, "gnn_heads": 2, "gnn_concat": False,
+                    "graph_type": "knn", "k_neighbors": 4,
+                    "connect_diagonals": False, "att_dim": 4, "att_heads": 2,
+                    "classifier_dim": 8, "classifier_light": True,
+                    "use_residual": False, "use_layer_norm": True,
+                    "optimizer": "adam"},
+}
+POP2 = {"lr": np.array([1e-2, 3e-3]), "weight_decay": np.array([1e-4, 1e-3])}
+
+
+def _recorder():
+    per_epoch = {}
+
+    def report(t, m):
+        if "val_macro_p" in m:
+            per_epoch.setdefault(t, []).append(m)
+    return per_epoch, report
+
+
+def _jax_start(kind, shape, seed, data, monkeypatch):
+    """JAX ``_train_population``'s initial params (:274-275; the values do
+    not depend on the bag), loaded by the port's ``init_params_``."""
+    max_n = max(b.shape[0] for b in data["train_feats"])
+    x0 = jnp.zeros((max_n, F_IN))
+    keys = {"params": jax.random.PRNGKey(seed),
+            "dropout": jax.random.PRNGKey(0)}
+    if kind == "mil":
+        jm = JMIL.AttentionMIL(input_dim=F_IN, dropout=0.0, num_classes=NC,
+                               **MIL_SHAPE)
+        start = jm.init(keys, x0, valid=jnp.ones(max_n, bool))["params"]
+        convert = mil_state_dict
+    else:
+        jm = JT.graph_mil_from_config(shape, F_IN, NC)
+        start = jm.init(keys, x0, jnp.eye(max_n),
+                        valid=jnp.ones(max_n, bool))["params"]
+        convert = graph_mil_state_dict
+    monkeypatch.setattr(TM, "init_params_", lambda model, s: (
+        model.load_state_dict(convert(start))))
+
+
+@pytest.mark.parametrize("case", ["mil-adam", "mil-adamw", "gat",
+                                  "transformer"])
+def test_cohort_matches_jax(case, monkeypatch):
+    """P = 2 trials of different lr / wd, 2 epochs, dropout 0, from JAX's
+    initial params: each trial's per-epoch val_loss and val_bacc."""
+    data, seed = _data(), 3
+    if case.startswith("mil"):
+        kind, shape = "mil", {**MIL_SHAPE, "optimizer": case[4:]}
+        pop = {**POP2, "dropout": np.zeros(2)}
+        jfn, tfn = JP.train_mil_population, TP.train_mil_population
+    else:
+        kind, shape = "graph-mil", GRAPH_SHAPES[case]
+        pop = {**POP2, "gnn_dropout": np.zeros(2),
+               "pool_dropout": np.zeros(2)}
+        jfn, tfn = JP.train_graph_mil_population, \
+            TP.train_graph_mil_population
+    _jax_start(kind, shape, seed, data, monkeypatch)
+    kw = dict(seed=seed, num_classes=NC, patience=5, max_epochs=2)
+    jrec, jrep = _recorder()
+    trec, trep = _recorder()
+    want = jfn(shape, pop, data, report_fn=jrep, **kw)
+    got = tfn(shape, pop, data, report_fn=trep, device="cpu", **kw)
+    for t in range(2):
+        assert len(trec[t]) == len(jrec[t]) == 2
+        for g, w in zip(trec[t], jrec[t]):
+            assert set(g) == set(w)
+            np.testing.assert_allclose(g["val_loss"], float(w["val_loss"]),
+                                       rtol=RTOL_LOSS)
+            assert abs(g["val_bacc"] - float(w["val_bacc"])) <= ATOL_BACC
+        assert set(got[t]) == set(want[t])
+        assert got[t]["epochs_run"] == want[t]["epochs_run"] == 2
+    # the two trials really differ
+    assert trec[0][-1]["val_loss"] != pytest.approx(trec[1][-1]["val_loss"],
+                                                    rel=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["mil", "graph-mil"])
+def test_member_matches_sequential_trial(kind):
+    """A cohort member reproduces the port's sequential trainable for its
+    config (dropout 0), test metrics included, at JAX's lr of 1e-3
+    (``tests/test_hpo.py``): the batched and the single products round
+    differently, and Adam's normalised steps carry that further at a
+    larger lr (GAT at lr 1e-2: 5e-4 apart after 4 epochs)."""
+    data = _data(seed=4, test=6)
+    kw = dict(seed=0, num_classes=NC, patience=3, max_epochs=4)
+    if kind == "mil":
+        shape = {**MIL_SHAPE, "optimizer": "adam"}
+        pop = {"lr": np.array([1e-3, 1e-4]),
+               "weight_decay": np.array([1e-5, 1e-5]),
+               "dropout": np.zeros(2)}
+        seq = TM.train_mil({**shape, "lr": 1e-3, "weight_decay": 1e-5,
+                            "dropout": 0.0}, data, device="cpu", **kw)
+        reps = TP.train_mil_population(shape, pop, data, device="cpu", **kw)
+    else:
+        shape = GRAPH_SHAPES["gat"]
+        pop = {"lr": np.array([1e-3, 1e-4]),
+               "weight_decay": np.array([1e-5, 1e-5]),
+               "gnn_dropout": np.zeros(2), "pool_dropout": np.zeros(2)}
+        seq = TM.train_graph_mil({**shape, "lr": 1e-3, "weight_decay": 1e-5,
+                                  "gnn_dropout": 0.0, "pool_dropout": 0.0},
+                                 data, device="cpu", **kw)
+        reps = TP.train_graph_mil_population(shape, pop, data, device="cpu",
+                                             **kw)
+    assert reps[0]["val_bacc"] == pytest.approx(seq["val_bacc"], abs=1e-5)
+    assert reps[0]["val_loss"] == pytest.approx(seq["val_loss"], rel=1e-4)
+    for k in ("test_bacc", "test_auc", "test_loss"):
+        assert reps[0][k] == pytest.approx(seq[k], rel=1e-4, abs=1e-5), k
+    assert reps[1]["val_loss"] != pytest.approx(reps[0]["val_loss"],
+                                                rel=1e-6)
+
+
+def test_compaction_keeps_survivors_runs():
+    """At dropout 0.3, ASHA stops trials and the cohort compacts; every
+    survivor's per-epoch metrics equal its run in a cohort that never
+    compacts (the draws follow the trial's original index)."""
+    data = _data(seed=5, n=40)
+    shape = {**MIL_SHAPE, "optimizer": "adam"}
+    pop = {"lr": np.array([1e-2, 1e-6, 3e-6, 1e-5, 3e-2, 1e-6, 3e-6, 1e-5]),
+           "weight_decay": np.full(8, 1e-5), "dropout": np.full(8, 0.3)}
+    kw = dict(seed=0, num_classes=NC, patience=8, max_epochs=8, device="cpu")
+    prec, prep = _recorder()
+    arec, arep = _recorder()
+    sizes = []
+    step = TP.Cohort.step
+
+    def sized_step(self, *a):
+        sizes.append(len(self))
+        return step(self, *a)
+    plain = TP.train_mil_population(shape, pop, data, report_fn=prep, **kw)
+    sched = TA.ASHAScheduler(grace_period=1, reduction_factor=2, max_t=8)
+    TP.Cohort.step = sized_step
+    try:
+        asha = TP.train_mil_population(shape, pop, data, report_fn=arep,
+                                       scheduler=sched, **kw)
+    finally:
+        TP.Cohort.step = step
+    assert sum(r["stopped_early"] for r in asha) >= 2
+    assert min(sizes) < 8, "the cohort never compacted"
+    survivors = [t for t in range(8) if asha[t]["epochs_run"] == 8]
+    assert survivors and all(r["epochs_run"] == 8 for r in plain)
+    for t in survivors:
+        for a, p in zip(arec[t], prec[t]):
+            for k in a:
+                assert abs(a[k] - p[k]) <= 1e-6 or (
+                    np.isnan(a[k]) and np.isnan(p[k])), (t, k)
+    for t in range(8):  # ASHA's stops end at a rung, before max_t
+        assert asha[t]["stopped_early"] == (asha[t]["epochs_run"] < 8)
+
+
+def test_random_graph_refused():
+    with pytest.raises(ValueError, match="random"):
+        TP.train_graph_mil_population(
+            {**GRAPH_SHAPES["gat"], "graph_type": "random"},
+            {"lr": np.ones(1), "weight_decay": np.ones(1),
+             "gnn_dropout": np.zeros(1), "pool_dropout": np.zeros(1)},
+            _data(), device="cpu")
+
+
+# ------------------------------------------------------------- memory
+
+LARGE_END = dict(GRAPH_SHAPES["gat"], gnn_hidden=512, gnn_layers=8,
+                 gnn_heads=8, gnn_concat=True, att_dim=512, att_heads=8,
+                 classifier_dim=512)
+
+
+def test_param_bytes_and_cohort_size_equal_jax(monkeypatch):
+    cases = [("mil", {**MIL_SHAPE, "optimizer": "adam"}, 12),
+             ("graph-mil", GRAPH_SHAPES["transformer"], 12),
+             ("graph-mil", LARGE_END, 768)]
+    for kind, shape, f in cases:
+        want = JP.estimate_trial_param_bytes(kind, shape, f, 7)
+        assert TP.estimate_trial_param_bytes(kind, shape, f, 7) == want
+    assert want > 500e6  # the flagship space's large end: ~0.5 GB a trial
+    for gb in ("10", "3.5", "0.000004"):
+        monkeypatch.setenv("GRAFT_HPO_HBM_GB", gb)
+        monkeypatch.setenv("ISIC_HPO_MEM_GB", gb)
+        for kind, shape, f in cases:
+            for size in (8, 3):
+                assert TP.max_cohort_for_shape(
+                    kind, shape, f, 7, size, "cpu") == \
+                    JP.max_cohort_for_shape(kind, shape, f, 7, size)
+    monkeypatch.delenv("ISIC_HPO_MEM_GB")
+    assert TP.memory_budget_bytes("cpu") == TP.CPU_BUDGET_GB * 2**30
+
+
+# ------------------------------------------------------- multi-process store
+
+def test_store_pieces_across_two_views():
+    """Two process views of one ``HashStore``: the rung board, the results
+    table and the failure budget are global."""
+    store = torch.distributed.HashStore()
+    store.set_timeout(timedelta(seconds=10))
+    assert TD.shard_indices(7, 0, 2) == [0, 2, 4, 6]
+    assert TD.shard_indices(7, 1, 2) == [1, 3, 5]
+    assert TD.shard_indices(3) == [0, 1, 2]  # one process
+    assert TD.process_count() == 1 and TD.process_index() == 0
+
+    boards = [TD.CoordinationRungBoard("s0", store) for _ in range(2)]
+    assert boards[0].append(2, 0.5) == [0.5]
+    assert boards[1].append(2, 0.9) == [0.5, 0.9]
+    assert boards[0].append(4, 0.1) == [0.1]
+    assert boards[0].append(2, 0.2) == [0.5, 0.9, 0.2]
+    # a scheduler of each view judges against both views' rungs
+    scheds = [TA.ASHAScheduler(grace_period=1, max_t=8,
+                               board=TD.CoordinationRungBoard("s1", store))
+              for _ in range(2)]
+    assert scheds[0].on_result("a", 1, {"val_bacc": 0.8}) == "continue"
+    assert scheds[1].on_result("b", 1, {"val_bacc": 0.1}) == "stop"
+    assert scheds[1].on_result("c", 1, {"val_bacc": 0.9}) == "continue"
+
+    for view, idx in ((0, 0), (1, 1), (0, 2)):
+        TD.publish_result("s2", idx, {"final": {"val_bacc": 0.1 * idx},
+                                      "view": view}, store=store)
+    got = TD.collect_results("s2", expected=3, store=store)
+    assert sorted(got) == [0, 1, 2] and got[1]["view"] == 1
+    assert got[2]["final"]["val_bacc"] == pytest.approx(0.2)
+
+    assert TD.global_failure_count("s3", store=store) == 0
+    assert TD.global_failure_count("s3", True, store=store) == 1
+    assert TD.global_failure_count("s3", True, store=store) == 2
+    with pytest.raises(RuntimeError, match="2 trials failed"):
+        TD.collect_results("s3", expected=5, max_failures=2, store=store)
+    with pytest.raises(RuntimeError, match="timed out: 0/1"):
+        TD.collect_results("s4", expected=1, timeout_s=0.0, store=store)
+    # one process: no store, no-ops
+    assert TD.collect_results("s5", expected=1) == {}
+    assert TD.global_failure_count("s5", True) is None
+    local = TD.CoordinationRungBoard("s6")
+    assert local.append(1, 0.3) == [0.3] and local.append(1, 0.4) == [0.3,
+                                                                       0.4]

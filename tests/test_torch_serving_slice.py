@@ -207,10 +207,12 @@ def test_port_imports_no_jax_or_missing_packages():
         "'analysis.reduce', 'cli.extract_radiomics', 'cli.reduce_dim', "
         "'cli.train_ae', 'cli.save_latent', 'utils.viz', 'models.mil', "
         "'models.graphs', 'models.graph_mil', 'analysis.bags', 'train.mil', "
-        "'train.cv', 'cli.use_latent'}\n"
+        "'train.cv', 'cli.use_latent', 'hpo', 'hpo.space', 'hpo.asha', "
+        "'hpo.distributed', 'hpo.runner', 'hpo.population', "
+        "'cli.tune_mil'}\n"
         "missing = want - {n.split('.', 1)[1] for n in names}\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 64, names\n"
+        "assert len(names) >= 71, names\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
