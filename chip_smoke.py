@@ -167,7 +167,24 @@ width with random weights from a seed:
    trial-bags/s); on 96 de-saturated 196 × 768 bags (30% of the labels
    moved; 16 / 8 samples in cohorts of 8, 6 / 4 epochs: depth cuts), the
    packed search with ASHA against it without a scheduler, and against the
-   sequential runner given the packed run's wall time.
+   sequential runner given the packed run's wall time; 16c runs under the
+   card's default budget and under ``ISIC_HPO_MEM_GB=30``, each with its
+   counted bytes and its peak under the budget;
+17. latent clustering on phase 14's latents, every launch count at 0
+   before each run and still 0 after it (clustering launches no kernel):
+   ``cli.cluster_latents`` at full latent width with the default backbone
+   (PCA + k-means, k 20), ``--embed neighbor --clusterer density
+   --viz_out`` and ``--knn_method approx --clusterer density`` (each
+   writes ``df_filtered.pkl`` with the JAX CLI's columns; the rows and
+   width, each stage's time, trustworthiness, clusters and noise), then
+   ``cli.fetch_experiments`` over the run directories of phases 13–16 (a
+   LaTeX row); the exact kNN graph, Lloyd from one set of centers and
+   HDBSCAN given one graph on the card against the CPU (``CARD_CPU_*``);
+   at the reference's scale, a seeded 2,097,152 × 64 Gaussian-mixture
+   table: the approximate kNN graph (k 15, default nprobe) with recall@15
+   on 4,096 sampled queries ≥ ``REF_RECALL``, HDBSCAN and the neighbour
+   embedding on that graph, k-means (k 20), each stage's time and peak
+   memory.
 
 Float32 on the card runs in full float32 here: TF32 is off for cuDNN and
 cuBLAS throughout (``torch.backends.cudnn.allow_tf32 = False``).
@@ -3098,10 +3115,12 @@ def radiomics_chain(device, root, config):
     return out
 
 
-def _hook_calls_without_matplotlib(viz):
-    """Where matplotlib is not installed, each plotting call of the MAE
-    CLI's epoch hook must raise ``ImportError`` (as the JAX hook's would):
-    wrap them to check that and record it → the list of records."""
+def _plots_without_matplotlib(viz, names=("latent_scatter",
+                                           "reconstruction_grid")):
+    """Where matplotlib is not installed, each plotting call of a CLI (by
+    default the MAE CLI's epoch hook) must raise ``ImportError`` (as the
+    JAX package's would): wrap the ``names`` of ``viz`` to check that and
+    record it → the list of records."""
     raised = []
 
     def guard(fn):
@@ -3114,8 +3133,8 @@ def _hook_calls_without_matplotlib(viz):
             raise AssertionError(f"{fn.__name__} ran without matplotlib")
         return call
 
-    viz.latent_scatter = guard(viz.latent_scatter)
-    viz.reconstruction_grid = guard(viz.reconstruction_grid)
+    for name in names:
+        setattr(viz, name, guard(getattr(viz, name)))
     return raised
 
 
@@ -3174,7 +3193,7 @@ def mae_chain(device, root, config):
     from multimodal_isic_tpu_torch.utils import viz
     out = {}
     has_mpl = importlib.util.find_spec("matplotlib") is not None
-    raised = [] if has_mpl else _hook_calls_without_matplotlib(viz)
+    raised = [] if has_mpl else _plots_without_matplotlib(viz)
     df_train_val = pd.read_pickle(config["dir"]["df"])
     params = {"epochs": MAE_CLI_EPOCHS, "batch_size": VAL_BATCH,
               "model_size": "base", "norm_pix_loss": True,
@@ -3771,6 +3790,7 @@ HPO_GRACE, HPO_RF = 1, 2   # ASHA: the CLI's grace 10 cut with the epochs
 HPO_MEMBER_BAGS, HPO_MEMBER_EPOCHS = 40, 2   # 16b: 32 train + 8 val bags
 MEMBER_LOSS_RTOL = 1e-4
 HPO_LARGE_BAGS = 20    # 16c: 16 train + 4 val bags of 196 × 768
+HPO_MEM_GB = 30        # 16c's second budget (ISIC_HPO_MEM_GB)
 HPO_COHORTS = (1, 2, 4, 8)
 HPO_STEPS = 16         # 16d: timed per-bag cohort steps
 # 16e: de-saturated bags (30% of the labels moved to another class, so no
@@ -3951,16 +3971,31 @@ def hpo_member(device):
     return worst
 
 
-def hpo_large_end(device):
+def hpo_large_end(device, mem_gb=None):
     """16c: the graph space's large end at 196 × 768: the per-trial
-    parameter bytes, the sub-cohort the card's budget gives, one epoch over
-    16 bags, the peak memory against the budget."""
+    parameter bytes, the sub-cohort the budget gives (the card's default,
+    or ``ISIC_HPO_MEM_GB=mem_gb``) and its counted bytes, one epoch over 16
+    bags, the peak memory against the budget."""
+    import os
     from multimodal_isic_tpu_torch.hpo import population as HP
-    mb = HP.estimate_trial_param_bytes("graph-mil", LARGE_END, MIL_DIM,
-                                       7) / 1e6
-    budget = HP.memory_budget_bytes(device)
-    sub = HP.max_cohort_for_shape("graph-mil", LARGE_END, MIL_DIM, 7, 8,
-                                  device)
+    kept = os.environ.get("ISIC_HPO_MEM_GB")
+    if mem_gb is None:
+        os.environ.pop("ISIC_HPO_MEM_GB", None)
+    else:
+        os.environ["ISIC_HPO_MEM_GB"] = str(mem_gb)
+    try:
+        mb = HP.estimate_trial_param_bytes("graph-mil", LARGE_END, MIL_DIM,
+                                           7) / 1e6
+        budget = HP.memory_budget_bytes(device)
+        sub = HP.max_cohort_for_shape("graph-mil", LARGE_END, MIL_DIM, 7, 8,
+                                      device, MIL_NODES)
+    finally:
+        if kept is None:
+            os.environ.pop("ISIC_HPO_MEM_GB", None)
+        else:
+            os.environ["ISIC_HPO_MEM_GB"] = kept
+    counted = HP.estimate_cohort_bytes("graph-mil", LARGE_END, MIL_DIM, 7,
+                                       sub, MIL_NODES)
     data = _hpo_bags(HPO_LARGE_BAGS, 7, SEED + 61)
     pop = {"lr": np.geomspace(1e-6, 1e-3, sub),
            "weight_decay": np.geomspace(1e-8, 1e-3, sub),
@@ -3975,20 +4010,24 @@ def hpo_large_end(device):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     losses = [r["val_loss"] for r in reps]
+    where = ("the card's default budget" if mem_gb is None
+             else f"ISIC_HPO_MEM_GB={mem_gb}")
     print(f"16c graph space's large end (GAT {LARGE_END['gnn_hidden']} × "
           f"{LARGE_END['gnn_heads']} heads concat × "
           f"{LARGE_END['gnn_layers']} layers, pooling "
           f"{LARGE_END['att_dim']} × {LARGE_END['att_heads']}, classifier "
-          f"{LARGE_END['classifier_dim']}) at {MIL_NODES} × {MIL_DIM}: "
-          f"{mb:.1f} MB of parameters a trial; budget "
-          f"{budget / 2**30:.2f} GiB → sub-cohort {sub}; one epoch over "
+          f"{LARGE_END['classifier_dim']}) at {MIL_NODES} × {MIL_DIM}, "
+          f"{where}: {mb:.1f} MB of parameters a trial; budget "
+          f"{budget / 2**30:.2f} GiB → sub-cohort {sub}, counted "
+          f"{counted / 2**30:.2f} GiB; one epoch over "
           f"{int(HPO_LARGE_BAGS * 0.8)} bags in {wall:.1f} s, val losses "
           f"{[round(v, 4) for v in losses]}, peak "
           f"{peak / 2**30:.2f} GiB")
     if not np.isfinite(losses).all() or peak > budget or len(reps) != sub:
         raise AssertionError("16c: non-finite losses or over the budget")
     return {"mb": mb, "sub": sub, "peak_gib": peak / 2**30,
-            "budget_gib": budget / 2**30, "wall": wall}
+            "budget_gib": budget / 2**30, "counted_gib": counted / 2**30,
+            "wall": wall}
 
 
 def time_cohorts(device, bags, labels, seq_times):
@@ -4138,12 +4177,341 @@ def hpo_chain(device, root, config, seq_times):
         "patch_level_latents_train_df.pkl"
     walls = hpo_cli(device, root, config, frame_path)
     member = hpo_member(device)
-    large = hpo_large_end(device)
+    large = [hpo_large_end(device), hpo_large_end(device, HPO_MEM_GB)]
     bags, labels, _ = build_patient_bags(pd.read_pickle(frame_path))
     steps = time_cohorts(device, bags, labels, seq_times)
     pruning = hpo_pruning(device)
     return {"walls": walls, "member": member, "large": large,
             "steps": steps, "pruning": pruning}
+
+
+CLUSTER_RUNS = {  # 17a: cli.cluster_latents's flags a run
+    "pca-kmeans": [],
+    "neighbor-density-viz": ["--embed", "neighbor", "--clusterer",
+                             "density"],
+    "approx-density": ["--knn_method", "approx", "--clusterer", "density"],
+}
+CLUSTER_STAGES = ("kNN", "layout", "PCA", "clustering", "trustworthiness",
+                  "statistics")
+CARD_CPU_SHARE = 0.999  # 17b: entries / labels that must agree
+CARD_CPU_DIST = 1e-4    # 17b: distances, relative (with a floor, below)
+REF_ROWS, REF_DIM = 2_097_152, 64   # 17c: the reference's ~2M-row table
+REF_QUERIES, REF_RECALL = 4096, 0.95
+REF_COMPONENTS = 128    # 17c: Gaussian components of the table
+
+
+class _StageClock:
+    """Wraps module functions to time them as stages (synchronised host
+    clock), a nested call's time taken out of the enclosing stage's, and
+    keeps what the clustering and trustworthiness calls returned."""
+
+    def __init__(self):
+        from multimodal_isic_tpu_torch.analysis import cluster as C
+        from multimodal_isic_tpu_torch.analysis import embed as E
+        from multimodal_isic_tpu_torch.analysis import kmeans as KM
+        from multimodal_isic_tpu_torch.analysis import pca as P
+        self.targets = [
+            (E, "knn", "kNN"), (E, "neighbor_embedding", "layout"),
+            (P, "fit", "PCA"), (E, "hdbscan_cluster", "clustering"),
+            (E, "density_cluster", "clustering"),
+            (KM, "fit_best_of", "clustering"),
+            (C, "trustworthiness", "trustworthiness"),
+            (C, "patient_class_weights", "statistics"),
+            (C, "cluster_purity_stats", "statistics"),
+            (C, "filter_low_purity_clusters", "statistics")]
+        self.kept = [getattr(m, name) for m, name, _ in self.targets]
+        self.seconds = dict.fromkeys(CLUSTER_STAGES, 0.0)
+        self.returned = {}
+        self._stack = []
+
+    def _wrap(self, fn, name, stage):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            self._stack.append(0.0)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent = time.perf_counter() - t0
+            inner = self._stack.pop()
+            self.seconds[stage] += spent - inner
+            if self._stack:
+                self._stack[-1] += spent
+            self.returned.setdefault(name, []).append(out)
+            return out
+        return timed
+
+    def __enter__(self):
+        for (mod, name, stage), fn in zip(self.targets, self.kept):
+            setattr(mod, name, self._wrap(fn, name, stage))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.targets, self.kept):
+            setattr(mod, name, fn)
+
+
+def _cluster_columns(frame_cols, num_classes=7):
+    """The columns of JAX's ``df_filtered.pkl`` (``cli/cluster_latents.py:
+    128-134``)."""
+    return (list(frame_cols) + ["cluster", "cluster_same_count",
+                                "cluster_other_count", "cluster_prop_same",
+                                "cluster_ratio_same_other",
+                                "cluster_prop_same_weighted"]
+            + [f"cluster_count_class_{c}" for c in range(num_classes)])
+
+
+def cluster_cli(device, root, config, frame_path):
+    """17a: ``cli.cluster_latents`` on phase 14's patch table, three
+    backbones, each run with every launch count at 0 and still 0 after;
+    then ``cli.fetch_experiments`` over the run directories of phases
+    13–16 → the runs' numbers."""
+    import importlib.util
+    import pandas as pd
+    from multimodal_isic_tpu_torch.cli import cluster_latents as TCL
+    from multimodal_isic_tpu_torch.cli import fetch_experiments as TFE
+    from multimodal_isic_tpu_torch.utils import viz
+    frame = pd.read_pickle(frame_path)
+    rows, width = len(frame), len(frame["patch_latent_pca"].iloc[0])
+    path = _write_yaml(root, "cluster", config)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    raised = [] if has_mpl else _plots_without_matplotlib(
+        viz, ("embedding_scatter",))
+    runs = {}
+    for name, flags in CLUSTER_RUNS.items():
+        label = f"17a cluster_latents {name}"
+        out = root / f"df_filtered_{name}.pkl"
+        viz_prefix = root / "cluster_viz"
+        extra = (["--viz_out", str(viz_prefix)] if name.endswith("viz")
+                 else [])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _StageClock() as clock:
+            _, lines = _no_launch(label, lambda: _quiet(lambda: TCL.main(
+                ["--config_path", str(path), "--patch_df",
+                 str(frame_path), "--out", str(out), *flags, *extra])))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        kept = pd.read_pickle(out)
+        if list(kept.columns) != _cluster_columns(frame.columns):
+            raise AssertionError(f"{label}: columns {list(kept.columns)}")
+        stats = kept[["cluster_prop_same",
+                      "cluster_prop_same_weighted"]].values
+        if not len(kept) or not np.isfinite(stats).all():
+            raise AssertionError(f"{label}: {len(kept)} rows kept")
+        labels = (clock.returned["fit_best_of"][0][1].cpu().numpy()
+                  if name == "pca-kmeans"
+                  else clock.returned["hdbscan_cluster"][0])
+        trust = clock.returned["trustworthiness"]
+        n_clusters = len(np.unique(labels[labels >= 0]))
+        noise = int((labels < 0).sum())
+        if extra:
+            page = Path(f"{viz_prefix}_interactive.html")
+            pngs = [Path(f"{viz_prefix}_{m}.png")
+                    for m in ("euclidean", "cosine")]
+            if not page.exists() or (has_mpl and not all(
+                    p.exists() for p in pngs)):
+                raise AssertionError(f"{label}: viz files missing")
+        print("\n".join(f"  cli.cluster_latents {name}: {ln}"
+                        for ln in lines))
+        print(f"{label}: {rows} rows × {width}, {wall:.1f} s, peak "
+              f"{peak / 2**30:.3f} GiB, no kernel launch; stages "
+              + ", ".join(f"{k} {v:.2f} s"
+                          for k, v in clock.seconds.items())
+              + f"; trustworthiness {[round(t, 4) for t in trust]}; "
+              f"{n_clusters} clusters, {noise} noise; {len(kept)} rows "
+              f"kept with JAX's columns")
+        runs[name] = {"wall": wall, "stages": dict(clock.seconds),
+                      "trust": trust, "clusters": n_clusters,
+                      "noise": noise, "peak_gib": peak / 2**30}
+    if not has_mpl:
+        print(f"17a NOTE: matplotlib is not installed on this machine; each "
+              f"embedding_scatter call raised ImportError ({raised}), the "
+              f"interactive page was written")
+    log_dirs = sorted({p.parent.parent for p in root.rglob("metrics.jsonl")})
+    rows_out = []
+    for log_dir in log_dirs:
+        _, printed = _quiet(lambda: TFE.main(["--log_dir", str(log_dir)]))
+        print(f"17a fetch_experiments {log_dir.relative_to(root)}: "
+              + " | ".join(printed))
+        rows_out += [ln for ln in printed if ln.endswith("\\\\")]
+    if not any(re.search(r"\d+\.\d+ \$\\pm\$", r) for r in rows_out):
+        raise AssertionError(f"17a fetch_experiments: no LaTeX row with a "
+                             f"metric ({rows_out})")
+    return runs
+
+
+def _shared_entries(x, nbr_a, dist_a, nbr_b, dist_b):
+    """Share of the (row, neighbour) entries of graph b also in graph a,
+    an entry also counting where a holds another neighbour at the same
+    distance within the tolerance (duplicate rows tie, and either may be
+    kept), and
+    over the shared entries the largest relative distance difference, with
+    a floor of ``CARD_CPU_DIST`` × the rows' norm (float32 rounds the
+    expanded ‖q‖² − 2q·c + ‖c‖² at that scale, not at d's)."""
+    norm = np.sqrt((x.astype(np.float64) ** 2).sum(1))
+    same, worst = 0, 0.0
+    for r in range(len(nbr_b)):
+        shared, ia, ib = np.intersect1d(nbr_a[r], nbr_b[r],
+                                        return_indices=True)
+        same += len(shared)
+        if len(shared):
+            a = dist_a[r][ia].astype(np.float64)
+            b = dist_b[r][ib].astype(np.float64)
+            scale = np.maximum(b, CARD_CPU_DIST * (norm[r] + norm[shared]))
+            worst = max(worst, float(np.max(np.abs(a - b) / scale)))
+        rest_a = list(np.delete(dist_a[r], ia))
+        for d in np.delete(dist_b[r], ib):
+            tol = CARD_CPU_DIST * max(float(d), 2.0 * norm[r])
+            tie = [i for i, e in enumerate(rest_a) if abs(e - d) <= tol]
+            if tie:
+                rest_a.pop(tie[0])
+                same += 1
+    return same / nbr_b.size, worst
+
+
+def cluster_card_vs_cpu(device, frame_path):
+    """17b: on phase 14's table, the exact kNN graph, Lloyd from one set of
+    initial centers and HDBSCAN given one graph, on the card against the
+    same functions on the CPU."""
+    import pandas as pd
+    from multimodal_isic_tpu_torch.analysis import embed as E
+    from multimodal_isic_tpu_torch.analysis import kmeans as KM
+    frame = pd.read_pickle(frame_path)
+    x = np.stack([np.asarray(v, np.float32)
+                  for v in frame["patch_latent_pca"]])
+    xd = torch.from_numpy(x).to(device)
+    t0 = time.perf_counter()
+    nbr_d, dist_d = E.knn_graph(xd, 15)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nbr_c, dist_c = E.knn_graph(x, 15, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    share, worst = _shared_entries(x, nbr_d.cpu().numpy(),
+                                   dist_d.cpu().numpy(), nbr_c.numpy(),
+                                   dist_c.numpy())
+    print(f"17b exact knn_graph (k 15) on {x.shape[0]} × {x.shape[1]}: "
+          f"card {t_card:.2f} s, CPU {t_cpu:.2f} s; {share:.5f} of the "
+          f"entries equal, distances within {worst:.2e} relative")
+    if share < CARD_CPU_SHARE or worst > CARD_CPU_DIST:
+        raise AssertionError("17b knn_graph: the card disagrees")
+
+    init = KM.kmeanspp_init(torch.Generator().manual_seed(SEED), x, 20)
+    _, lab_d = KM.lloyd(xd, init.to(device))
+    _, lab_c = KM.lloyd(torch.from_numpy(x), init)
+    agree = float((lab_d.cpu() == lab_c).float().mean())
+    print(f"17b lloyd (k 20, 100 iterations) from one set of k-means++ "
+          f"centers: labels equal at {agree:.5f}")
+    if agree < CARD_CPU_SHARE:
+        raise AssertionError("17b lloyd: the card disagrees")
+
+    graph = (nbr_d, dist_d)
+    hd = E.hdbscan_cluster(x, precomputed_knn=graph, device=device)
+    hc = E.hdbscan_cluster(x, precomputed_knn=tuple(t.cpu() for t in graph),
+                           device="cpu")
+    print(f"17b hdbscan_cluster given the card's graph: "
+          f"{len(np.unique(hd[hd >= 0]))} clusters, {(hd < 0).sum()} noise "
+          f"on the card; labels {'equal' if np.array_equal(hd, hc) else 'DIFFER'}"
+          f" on the CPU")
+    if not np.array_equal(hd, hc):
+        raise AssertionError("17b hdbscan_cluster: the card disagrees")
+    return {"knn_share": share, "knn_dist": worst, "lloyd": agree}
+
+
+def reference_table(device, seed=SEED + 70):
+    """17c's table: ``REF_ROWS`` × ``REF_DIM`` float32 from a seeded mixture of
+    ``REF_COMPONENTS`` Gaussians, each dimension's spread decaying as a PCA
+    projection's does (the stand-in for ``patch_latent_pca``), made on the
+    card → (card tensor, host copy)."""
+    rows, dim = REF_ROWS, REF_DIM
+    g = torch.Generator(device=device).manual_seed(seed)
+    centers = torch.randn(REF_COMPONENTS, dim, generator=g, device=device)
+    decay = 0.93 ** torch.arange(dim, device=device, dtype=torch.float32)
+    spread = 0.15 + 0.35 * torch.rand(REF_COMPONENTS, 1, generator=g,
+                                      device=device)
+    which = torch.randint(0, REF_COMPONENTS, (rows,), generator=g,
+                          device=device)
+    x = (centers[which] * 3.0 * decay
+         + torch.randn(rows, dim, generator=g, device=device)
+         * spread[which] * decay)
+    return x, x.cpu().numpy()
+
+
+def _stage(label, fn):
+    """``fn()`` timed on a synchronised host clock, its peak memory → (out,
+    seconds, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = _no_launch(label, fn)
+    return out, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated() / 2**30
+
+
+def cluster_reference_scale(device):
+    """17c: the approximate kNN graph (k 15, default nprobe) of a
+    2,097,152 × 64 table with its recall@15 on 4,096 sampled queries, then
+    HDBSCAN and the neighbour embedding on that graph and k-means (k 20)."""
+    from multimodal_isic_tpu_torch.analysis import ann as A
+    from multimodal_isic_tpu_torch.analysis import embed as E
+    from multimodal_isic_tpu_torch.analysis import kmeans as KM
+    t0 = time.perf_counter()
+    xd, x = reference_table(device)
+    print(f"17c table: {x.shape[0]} × {x.shape[1]} float32 "
+          f"({x.nbytes / 2**20:.0f} MiB; width 64 stands in for "
+          f"patch_latent_pca: a reduction), {REF_COMPONENTS} Gaussian "
+          f"components, made in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    (nbr, dist), out["knn_s"], out["knn_gib"] = _stage(
+        "17c approx_knn_graph", lambda: A.approx_knn_graph(
+            x, 15, device=device))
+    print(f"17c approx_knn_graph (k 15, default nprobe): "
+          f"{out['knn_s']:.1f} s, peak {out['knn_gib']:.2f} GiB", flush=True)
+    q = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(
+        SEED))[:REF_QUERIES]
+    exact, _ = E.knn_graph(xd, 15, rows=q.to(device))
+    out["recall"] = A.knn_recall(nbr[q.numpy()], exact.cpu().numpy(),
+                                 dist[q.numpy()])
+    print(f"17c recall@15 {out['recall']:.4f} on {REF_QUERIES} sampled "
+          f"queries against the exact graph (bar {REF_RECALL}); "
+          f"{int((dist >= A.FINITE).sum())} unfilled slots")
+    if out["recall"] < REF_RECALL:
+        raise AssertionError("17c: recall under the bar")
+    graph = (torch.from_numpy(nbr).to(device), torch.from_numpy(dist).to(
+        device))
+    labels, out["hdbscan_s"], out["hdbscan_gib"] = _stage(
+        "17c hdbscan_cluster", lambda: E.hdbscan_cluster(
+            x, precomputed_knn=graph, device=device))
+    print(f"17c hdbscan_cluster on that graph: {out['hdbscan_s']:.1f} s, "
+          f"peak {out['hdbscan_gib']:.2f} GiB; "
+          f"{len(np.unique(labels[labels >= 0]))} clusters, "
+          f"{int((labels < 0).sum())} noise")
+    (state, km), out["kmeans_s"], out["kmeans_gib"] = _stage(
+        "17c kmeans", lambda: KM.fit_best_of(
+            torch.Generator(device=device).manual_seed(SEED), xd, 20))
+    print(f"17c kmeans.fit_best_of (k 20, 4 restarts batched): "
+          f"{out['kmeans_s']:.1f} s, peak {out['kmeans_gib']:.2f} GiB; "
+          f"inertia {float(state.inertia):.6g}, {int(state.n_iter)} shifts "
+          f"above tol, {len(torch.unique(km))} clusters")
+    emb, out["layout_s"], out["layout_gib"] = _stage(
+        "17c neighbor_embedding", lambda: E.neighbor_embedding(
+            x, precomputed_knn=graph, device=device))
+    if emb.shape != (x.shape[0], 2) or not np.isfinite(emb).all():
+        raise AssertionError(f"17c neighbor_embedding: {emb.shape}")
+    print(f"17c neighbor_embedding (2-d, 500 epochs, "
+          f"{E.layout_segments(nbr.size)} segments) on that graph: "
+          f"{out['layout_s']:.1f} s, peak {out['layout_gib']:.2f} GiB")
+    return out
+
+
+def cluster_chain(device, root, config):
+    """Phase 17: latent clustering on the card → numbers for PERF.md."""
+    frame_path = root / "dataframes_latents" / \
+        "patch_level_latents_train_df.pkl"
+    runs = cluster_cli(device, root, config, frame_path)
+    agree = cluster_card_vs_cpu(device, frame_path)
+    ref = cluster_reference_scale(device)
+    return {"runs": runs, "agree": agree, "ref": ref}
 
 
 def _write_yaml(root: Path, name: str, config: dict) -> Path:
@@ -4462,6 +4830,21 @@ def main() -> int:
           + ", ".join(f"{k} {hpo['steps'][(k, 8)]['step_ms']:.2f} ms"
                       for k in ("mil", "graph-mil"))
           + f"; wall {time.perf_counter() - t_start:.1f} s")
+
+    # 17. latent clustering: cli.cluster_latents on phase 14's latents (three
+    # backbones) and cli.fetch_experiments over the runs of phases 13-16,
+    # the card against the CPU, the reference's ~2M-row scale
+    t17 = time.perf_counter()
+    clu = cluster_chain(device, cli["root"], cli["config"])
+    print(f"phase 17 (latent clustering) {time.perf_counter() - t17:.1f} s: "
+          + ", ".join(f"cluster_latents {k} {v['wall']:.1f} s"
+                      for k, v in clu["runs"].items())
+          + f"; 2M rows: approx kNN {clu['ref']['knn_s']:.1f} s (recall@15 "
+          f"{clu['ref']['recall']:.4f}), HDBSCAN "
+          f"{clu['ref']['hdbscan_s']:.1f} s, k-means "
+          f"{clu['ref']['kmeans_s']:.1f} s, layout "
+          f"{clu['ref']['layout_s']:.1f} s; wall "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     med, bound, b_bytes, b_ops = warp_times[BATCH]
     totals["affine_warp_batch"] = [med["kernel"], med["plain"], bound, b_bytes,

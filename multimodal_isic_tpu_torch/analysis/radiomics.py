@@ -36,13 +36,13 @@ imported where they are used.
 
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core.precision import full_float32  # noqa: F401  (re-exported)
 from ..ops import filters as FB
 from ..ops import texture as T
 from ..ops import texture_extra as X
@@ -58,25 +58,6 @@ def bt601_gray(r, g, b):
     coefficients summing to 2¹⁵; integers in, integers out (numpy or
     torch)."""
     return (9798 * r + 19235 * g + 3735 * b + 16384) >> 15
-
-
-@contextlib.contextmanager
-def full_float32():
-    """Matrix products and convolutions in full float32 (no TF32) inside
-    the block, whatever the global flags; restored after.  The products'
-    setting is read and written through cuBLAS's own flag
-    (``torch.backends.cuda.matmul.fp32_precision``): the process-wide
-    ``get_float32_matmul_precision`` raises once a caller has mixed the
-    legacy ``allow_tf32`` flag with the newer setters."""
-    matmul = torch.backends.cuda.matmul.fp32_precision
-    cudnn = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.fp32_precision = "ieee"
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.fp32_precision = matmul
-        torch.backends.cudnn.allow_tf32 = cudnn
 
 
 def texture_bundle(derived: torch.Tensor, mask: torch.Tensor,

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..core.splits import StratifiedKFold
-from .radiomics import full_float32
+from ..core.precision import full_float32
 
 SELECT_THRESHOLD = 1e-5  # SelectFromModel's threshold for L1 models
 POWER_ITERS = 16

@@ -37,11 +37,14 @@ from __future__ import annotations
 
 import os
 import time
+import weakref
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch.func import functional_call, grad, vmap
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from ..core import metrics as M
 from ..core.rng import RngStream
@@ -66,7 +69,8 @@ GRAPH_POP_KEYS = ("lr", "weight_decay", "gnn_dropout", "pool_dropout")
 GRAPH_SHAPE_KEYS = tuple(k for k in GRAPH_MIL_SPACE if k not in GRAPH_POP_KEYS)
 
 B1, B2, EPS = 0.9, 0.999, 1e-8   # torch.optim.Adam's defaults
-RESIDENT_COPIES = 6   # params, Adam m and v, two best trackers, gradients
+STATE_COPIES = 5   # params, Adam m and v, the two best-checkpoint trackers
+BAG_SIZE = 196     # patches a bag: 14 × 14 of a 224² image's latents
 BUDGET_SHARE = 10 / 16   # JAX's 10 GiB of a 16 GB chip, of the card's memory
 CPU_BUDGET_GB = 10.0     # the budget on the CPU: JAX's default
 
@@ -204,8 +208,13 @@ class Cohort:
 
         grads = vmap(grad(loss), randomness="same")(
             self.views(self.params), self.rates, self.tidx)
-        g = torch.cat([grads[name].reshape(len(self), -1)
-                       for name, *_ in self.layout], 1)
+        # two [P, n] work buffers, allocated once the backward has freed
+        # its activations (:func:`estimate_cohort_bytes`): the gradients,
+        # then the update's numerator; the update's denominator
+        g = torch.empty_like(self.params)
+        torch.cat([grads.pop(name).reshape(len(self), -1)
+                   for name, *_ in self.layout], 1, out=g)
+        del grads
         self.t += 1
         bc1 = 1.0 - B1 ** self.t
         bc2_sqrt = (1.0 - B2 ** self.t) ** 0.5
@@ -214,11 +223,12 @@ class Cohort:
         if self.decoupled:   # AdamW: p ← p·(1 − lr·wd) first
             self.params.mul_(self._decay_col)
         else:                # Adam: wd folded into the gradient
-            g = g.addcmul(self.params, self._wd_col)
+            g.addcmul_(self.params, self._wd_col)
         self.m.lerp_(g, 1.0 - B1)
         self.v.mul_(B2).addcmul_(g, g, value=1.0 - B2)
-        denom = (self.v.sqrt() / bc2_sqrt).add_(EPS)
-        self.params.addcdiv_(self.m * neg_step, denom)
+        denom = torch.sqrt(self.v).div_(bc2_sqrt).add_(EPS)
+        torch.mul(self.m, neg_step, out=g)  # g is spent: the step's numerator
+        self.params.addcdiv_(g, denom)
 
     @torch.no_grad()
     def probs(self, flat: torch.Tensor, split: "TM.BagSplit"
@@ -247,10 +257,11 @@ class Cohort:
                 for row in host]
 
     def select(self, improved: np.ndarray, which: str) -> None:
-        """``best_{which}`` ← ``params`` where ``improved`` [P]."""
-        mask = torch.from_numpy(improved).to(self.device)[:, None]
-        setattr(self, f"best_{which}", torch.where(
-            mask, self.params, getattr(self, f"best_{which}")))
+        """``best_{which}`` ← ``params`` where ``improved`` [P], row by row
+        in place (no ``[P, n]`` temporary)."""
+        best = getattr(self, f"best_{which}")
+        for pos in np.flatnonzero(improved).tolist():
+            best[pos].copy_(self.params[pos])
 
     def snapshot(self, pos: int):
         """Host copies of one position's best checkpoints."""
@@ -558,23 +569,83 @@ def memory_budget_bytes(device: Device = "cuda") -> float:
     return CPU_BUDGET_GB * (1 << 30)
 
 
+class _LiveBytes(TorchDispatchMode):
+    """Bytes of the tensors that ops create and that are still alive, and
+    their peak: a run on ``meta`` tensors allocates nothing and frees what
+    the same run on a card frees."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = self.peak = 0
+
+    def _free(self, nbytes: int) -> None:
+        self.live -= nbytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        seen = {a.untyped_storage()._cdata for a in tree_leaves((args, kwargs))
+                if isinstance(a, torch.Tensor)}
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                store = t.untyped_storage()
+                if store._cdata not in seen:  # new storage, not a view
+                    seen.add(store._cdata)
+                    self.live += store.nbytes()
+                    self.peak = max(self.peak, self.live)
+                    weakref.finalize(store, self._free, store.nbytes())
+        return out
+
+
+def estimate_cohort_bytes(model_type: str, shape_config: Dict,
+                          input_dim: int, num_classes: int, trials: int,
+                          bag_size: int = BAG_SIZE) -> int:
+    """The bytes a packed cohort of ``trials`` holds at its peak:
+    ``STATE_COPIES`` float32 copies of every trial's parameters (live
+    params, Adam m and v, the two best-checkpoint trackers of the dual-best
+    protocol), and the larger of what one :meth:`Cohort.step` on a bag of
+    ``bag_size`` patches adds (activations, dropout draws, gradients, the
+    update's two flat buffers) and what one evaluation chunk of
+    ``train.mil.EVAL_CHUNK`` such bags adds.  Both run on the ``meta``
+    device under :class:`_LiveBytes`: the same ops as on the card, nothing
+    allocated."""
+    spec = (graph_mil_spec if model_type == "graph-mil" else mil_spec)(
+        shape_config, num_classes)
+    b = TM.EVAL_CHUNK
+    with torch.device("meta"):
+        model = spec.build(input_dim)
+        x = torch.empty(b, bag_size, input_dim)
+        valid = torch.ones(b, bag_size, dtype=torch.bool)
+        adj = (torch.empty(b, bag_size, bag_size)
+               if spec.graph_cfg is not None else None)
+        y = torch.zeros((), dtype=torch.long)
+    pop = {k: np.full(trials, 0.5) for k in ("lr", "weight_decay")
+           + spec.rate_keys}
+    cohort = Cohort(spec, model, pop,
+                    shape_config.get("optimizer", "adam") == "adamw", "meta")
+    step, chunk = _LiveBytes(), _LiveBytes()
+    with step:
+        cohort.step(x[0], valid[0], None if adj is None else adj[0], y, None)
+    with chunk, torch.no_grad():
+        vmap(lambda f: cohort._forward(cohort.views(f), x, valid, adj,
+                                       False))(cohort.params)
+    state = STATE_COPIES * trials * estimate_trial_param_bytes(
+        model_type, shape_config, input_dim, num_classes)
+    return state + max(step.peak, chunk.peak)
+
+
 def max_cohort_for_shape(model_type: str, shape_config: Dict, input_dim: int,
                          num_classes: int, cohort_size: int,
-                         device: Device = "cuda") -> int:
-    """Largest sub-cohort whose resident state fits the memory budget
-    (:func:`memory_budget_bytes`), a power of two.
-
-    A packed trial holds ``RESIDENT_COPIES`` float32 copies of its
-    parameters: live params, Adam m and v, the two best-checkpoint trackers
-    of the dual-best protocol and the step's gradients.  The flagship space
-    reaches ~536 MB of parameters a trial (gnn_hidden 512 × 8 concat heads
-    × 8 layers)."""
+                         device: Device = "cuda",
+                         bag_size: int = BAG_SIZE) -> int:
+    """Largest sub-cohort, a power of two, whose step fits the memory
+    budget (:func:`memory_budget_bytes`) by :func:`estimate_cohort_bytes`.
+    The flagship space reaches ~556 MB of parameters a trial (gnn_hidden
+    512 × 8 concat heads × 8 layers)."""
     budget = memory_budget_bytes(device)
-    per_trial = RESIDENT_COPIES * estimate_trial_param_bytes(
-        model_type, shape_config, input_dim, num_classes)
-    s = max(1, int(budget // max(per_trial, 1)))
     p = 1
-    while p * 2 <= min(s, cohort_size):  # a power of 2: compaction-friendly
+    while p * 2 <= cohort_size and estimate_cohort_bytes(
+            model_type, shape_config, input_dim, num_classes, p * 2,
+            bag_size) <= budget:  # a power of 2: compaction-friendly
         p *= 2
     return p
 
@@ -634,6 +705,8 @@ def run_population_search(
             and scheduler.board is None:
         scheduler.board = hdist.CoordinationRungBoard(ns)
     cohort_rows: Dict[int, List[dict]] = {}
+    bag_size = max(len(b) for b in list(data["train_feats"])
+                   + list(data.get("test_feats", [])))
     for c in range(n_cohorts):
         P = min(cohort_size, num_samples - c * cohort_size)
         # every process samples every cohort from the same stream; only its
@@ -649,7 +722,8 @@ def run_population_search(
         input_dim = int(np.asarray(data["train_feats"][0]).shape[1])
         kind = "graph-mil" if model_type == "graph-mil" else "mil"
         sub = max_cohort_for_shape(kind, shape_config, input_dim,
-                                   num_classes, cohort_size, device)
+                                   num_classes, cohort_size, device,
+                                   bag_size)
         if verbose and sub < P:
             mb = estimate_trial_param_bytes(kind, shape_config, input_dim,
                                             num_classes) / 1e6

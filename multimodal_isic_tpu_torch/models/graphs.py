@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..analysis.radiomics import full_float32
+from ..core.precision import full_float32
 from ..core.rng import generator as make_generator
 
 

@@ -378,6 +378,11 @@ LARGE_END = dict(GRAPH_SHAPES["gat"], gnn_hidden=512, gnn_layers=8,
 
 
 def test_param_bytes_and_cohort_size_equal_jax(monkeypatch):
+    """Parameter bytes equal JAX's ``eval_shape`` count.  The cohort size
+    is the port's own rule (JAX's is six copies of the parameters, which
+    the port's step outgrew: ``test_cohort_bytes_bound_the_measured_peak``):
+    the largest power of two up to the cohort size whose counted bytes fit
+    the budget, one trial when none fits."""
     cases = [("mil", {**MIL_SHAPE, "optimizer": "adam"}, 12),
              ("graph-mil", GRAPH_SHAPES["transformer"], 12),
              ("graph-mil", LARGE_END, 768)]
@@ -385,16 +390,106 @@ def test_param_bytes_and_cohort_size_equal_jax(monkeypatch):
         want = JP.estimate_trial_param_bytes(kind, shape, f, 7)
         assert TP.estimate_trial_param_bytes(kind, shape, f, 7) == want
     assert want > 500e6  # the flagship space's large end: ~0.5 GB a trial
-    for gb in ("10", "3.5", "0.000004"):
-        monkeypatch.setenv("GRAFT_HPO_HBM_GB", gb)
+    counted = {(kind, p): TP.estimate_cohort_bytes(kind, shape, f, 7, p, 9)
+               for kind, shape, f in cases[:2] for p in (1, 2, 4, 8)}
+    monkeypatch.setattr(TP, "estimate_cohort_bytes",
+                        lambda kind, *args: counted[(kind, args[-2])])
+    for gb in ("10", "0.003", "0.000004"):
         monkeypatch.setenv("ISIC_HPO_MEM_GB", gb)
-        for kind, shape, f in cases:
+        budget = float(gb) * 2**30
+        for kind, shape, f in cases[:2]:
             for size in (8, 3):
-                assert TP.max_cohort_for_shape(
-                    kind, shape, f, 7, size, "cpu") == \
-                    JP.max_cohort_for_shape(kind, shape, f, 7, size)
+                sub = TP.max_cohort_for_shape(kind, shape, f, 7, size, "cpu",
+                                              9)
+                assert sub in (1, 2, 4, 8) and sub <= size
+                assert sub == 1 or counted[(kind, sub)] <= budget
+                assert 2 * sub > size or counted[(kind, 2 * sub)] > budget
     monkeypatch.delenv("ISIC_HPO_MEM_GB")
     assert TP.memory_budget_bytes("cpu") == TP.CPU_BUDGET_GB * 2**30
+
+
+def _cpu_peak(fn):
+    """Peak bytes that ``fn()`` allocates on the CPU above what was live
+    before it (the profiler's allocation and free events in time order)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU], profile_memory=True) \
+            as prof:
+        fn()
+    live = peak = 0
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        live += (e.cpu_memory_usage if e.name == "[memory]"
+                 else e.self_cpu_memory_usage)
+        peak = max(peak, live)
+    return peak
+
+
+@pytest.mark.parametrize("kind", ["mil", "graph-mil"])
+def test_cohort_bytes_bound_the_measured_peak(kind):
+    """The counted bytes of a cohort (its state, and the larger of a step
+    and an evaluation chunk, simulated on ``meta`` tensors) against the
+    peak the same cohort allocates on the CPU: at or above it, within
+    1.5×."""
+    shape = ({**MIL_SHAPE, "hidden_dim": 96, "att_dim": 48,
+              "optimizer": "adam"} if kind == "mil"
+             else dict(GRAPH_SHAPES["gat"], gnn_hidden=16, att_dim=16))
+    spec = (TP.graph_mil_spec if kind == "graph-mil" else TP.mil_spec)(
+        shape, NC)
+    P, n, f = 4, 25, 24
+    pop = {k: np.full(P, 0.3) for k in ("lr", "weight_decay")
+           + spec.rate_keys}
+    cohort = TP.make_cohort(spec, shape, pop, f, 0, "cpu")
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(TM.EVAL_CHUNK, n, f).astype(np.float32))
+    valid = torch.ones(TM.EVAL_CHUNK, n, dtype=torch.bool)
+    adj = (TM._adj_for_bag(x, valid, spec.graph_cfg)
+           if spec.graph_cfg is not None else None)
+    gen = torch.Generator().manual_seed(0)
+    step = lambda: cohort.step(x[0], valid[0],
+                               None if adj is None else adj[0],
+                               torch.tensor(1), gen)
+    step()  # the first step's lazy set-up is not the steady state
+
+    def chunk():
+        with torch.no_grad():
+            torch.func.vmap(lambda p: cohort._forward(
+                cohort.views(p), x, valid, adj, False))(cohort.params)
+
+    state = TP.STATE_COPIES * P * TP.estimate_trial_param_bytes(
+        kind, shape, f, NC)
+    measured = state + max(_cpu_peak(step), _cpu_peak(chunk))
+    counted = TP.estimate_cohort_bytes(kind, shape, f, NC, P, n)
+    assert measured <= counted <= 1.5 * measured, (measured, counted)
+
+
+def test_cohort_size_keeps_the_budget(monkeypatch):
+    """The two cases the six-copy rule broke (GAT 512 × 8 heads concat × 8
+    layers, bags of 196): 556.5 MB a trial under a 30 GiB budget, where it
+    packed 8 trials into a measured 37.61 GiB, and a trial 0.5% smaller
+    at ``--cohort_size 16`` under the card's default 49.49 GiB, where it
+    packed 16.  Neither packs more than its budget by the count."""
+    smaller = dict(LARGE_END, att_dim=488)   # pooling 488 × 8: 553.3 MB
+    count, seen = TP.estimate_cohort_bytes, {}
+
+    def once(kind, shape, *args):  # each count is simulated once
+        key = (kind, shape["att_dim"], *args)
+        if key not in seen:
+            seen[key] = count(kind, shape, *args)
+        return seen[key]
+
+    monkeypatch.setattr(TP, "estimate_cohort_bytes", once)
+    assert TP.estimate_trial_param_bytes("graph-mil", LARGE_END, 768, 7) \
+        == 556_451_900
+    assert 553e6 < TP.estimate_trial_param_bytes("graph-mil", smaller, 768,
+                                                 7) <= 553.5e6
+    for gb, shape, size in (("30", LARGE_END, 8), ("49.49", smaller, 16)):
+        monkeypatch.setenv("ISIC_HPO_MEM_GB", gb)
+        sub = TP.max_cohort_for_shape("graph-mil", shape, 768, 7, size,
+                                      "cpu")
+        counted = TP.estimate_cohort_bytes("graph-mil", shape, 768, 7, sub)
+        assert counted <= float(gb) * 2**30, (gb, sub, counted / 2**30)
+        assert 2 * sub > size or TP.estimate_cohort_bytes(
+            "graph-mil", shape, 768, 7, 2 * sub) > float(gb) * 2**30
+    assert sub < 16  # 16 such trials count ~58 GiB
 
 
 # ------------------------------------------------------- multi-process store
