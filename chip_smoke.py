@@ -90,15 +90,19 @@ width with random weights from a seed:
 12. first-order accumulation and the bare fused MLP, each through its own
    entry point (neither has a caller in the JAX package): the 13
    first-order calls of one radiomics chunk (64 maps of 450×600, one per
-   derived image) and the bare MLP at ConvViT-Base's conv stages (bs 16
-   float32, bs 128 bf16) and at C2 ≠ C, with the launch counts at 0; holds
-   each result against its plain version (first order: n, min, max and
-   the histogram equal, the sums within ``SUM_TOL`` of their magnitude, and
-   the edge maps: an empty ROI, one pixel, codes above NG and 128, the
-   scalar-load path; the MLP within ``fused_mlp.TOL``), the same bits on a
-   rerun, the first-order stats against ``texture.firstorder_features``
-   and the MLP's gradients on the card; times both against their plain
-   versions and bounds;
+   derived image: the cluster path, one launch a call) and the bare MLP at
+   ConvViT-Base's conv stages (bs 16 float32, bs 128 bf16: wgmma + TMA)
+   and at C2 ≠ C, with the launch counts at 0; holds each result against
+   its plain version (first order: n, min, max and the histogram equal,
+   the sums within ``SUM_TOL`` of their magnitude, and the edge maps: an
+   empty ROI, one pixel, codes above NG and 128, the scalar head and tail,
+   and 1000×1000 maps on the two-pass path; the MLP within
+   ``fused_mlp.TOL``), the same bits on a rerun, each plan's path and
+   device launches a call, the first-order stats against
+   ``texture.firstorder_features`` and the MLP's gradients on the card;
+   times both against their plain versions, bounds, the MLP's two products
+   alone as ``torch.matmul`` and, where ``build/parent`` holds a checkout
+   of the parent commit, the parent's kernels in the same run;
 13. the fusion CLI from files on disk: writes 192 rendered 450×600 lesions
    (160 train, 32 test) with ``make_synthetic_isic``, runs
    ``cli.prepare_df`` and ``cli.main`` (B3@380 full width, float32,
@@ -430,24 +434,63 @@ def _kernel_inputs(kind, bsz, h, cin, cmid, k, dtype, device, g):
     return (x, we.t(), be, wd.permute(2, 3, 1, 0), bd)
 
 
-def device_launches(fn, traces=5):
+def _cu(lib, name, *args):
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUresult {rc}")
+
+
+def device_launches(fn):
     """Names of the device activities (kernels, memsets, copies) of one call
-    of ``fn``, traced by torch.profiler.  A trace that recorded no device
-    activity at all lost the call's (torch.profiler sometimes records
-    nothing for a traced call), so the call is traced again, up to
-    ``traces`` times; any trace that recorded something is the answer."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(traces):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        if names:
-            break
+    of ``fn``: the call is captured in a CUDA graph and the graph's nodes
+    are read through libcuda (a kernel node by its function's
+    mangled name, else "memset" or "memcpy").  Unlike a torch.profiler
+    trace, which can lose a call's activity, the capture holds every
+    launch.  The capture runs on one side stream, on which ``fn`` is called
+    once before, so it holds no first-use setup (a wrapper's state made for
+    a new stream, such as MBConv's pool counters)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, ptr = ctypes.c_void_p, ctypes.byref
+    if device_launches.stream is None:
+        device_launches.stream = torch.cuda.Stream()
+    stream = device_launches.stream
+    torch.cuda.synchronize()
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    handle = vp(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    _cu(cu, "cuGraphGetNodes", handle, None, ptr(count))
+    nodes = (vp * count.value)()
+    _cu(cu, "cuGraphGetNodes", handle, nodes, ptr(count))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        _cu(cu, "cuGraphNodeGetType", vp(node), ptr(kind))
+        if kind.value in (1, 2):  # CU_GRAPH_NODE_TYPE_MEMCPY, _MEMSET
+            names.append(("memcpy", "memset")[kind.value - 1])
+        elif kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
+            params = (ctypes.c_byte * 256)()
+            _cu(cu, "cuGraphKernelNodeGetParams_v2", vp(node), params)
+            func = vp.from_buffer(params, 0).value
+            kern = vp.from_buffer(params, 56).value
+            name = ctypes.c_char_p()
+            if func:
+                _cu(cu, "cuFuncGetName", ptr(name), vp(func))
+            else:
+                _cu(cu, "cuKernelGetName", ptr(name), vp(kern))
+            names.append(name.value.decode())
+    del graph
+    torch.cuda.synchronize()
     return names
+
+
+device_launches.stream = None
 
 
 def check_kernels(device, bsz=BATCH):
@@ -2253,6 +2296,93 @@ def _firstorder_edge_cases(device, n=SRC_HW[0] * SRC_HW[1]):
              flat_lv[:3 * n].view(3, n))]
 
 
+FO_LARGE = (4, 1000 * 1000)  # maps past the cluster path's capacity: two-pass
+PARENT_ROOT = Path(__file__).resolve().parent / "build" / "parent"
+
+
+def _firstorder_large(device):
+    """(label, image, levels) of 4 maps of 1000×1000 (more pixels than one
+    thread-block cluster of ``histogram.firstorder_plan`` keeps): map 0 an
+    empty ROI, map 1 one valid pixel, the rest ~60% valid with codes in
+    1..NG, (NG, 128], above 128 and negative."""
+    g = torch.Generator(device=device).manual_seed(SEED + 53)
+    b, n = FO_LARGE
+    x = torch.randn(b, n, generator=g, device=device) * 40 + 90
+    lv = torch.randint(-3, 200, (b, n), generator=g, device=device,
+                       dtype=torch.int32)
+    lv = torch.where(torch.rand(b, n, generator=g, device=device) < 0.6, lv, 0)
+    lv[0] = 0
+    lv[1] = 0
+    lv[1, n // 2] = 5
+    return "1000x1000, the two-pass path", x, lv
+
+
+def parent_kernels():
+    """The parent commit's first-order and bare-MLP kernels, built from the
+    checkout under ``PARENT_ROOT`` (``git archive`` of the parent unpacked
+    there; absent in a plain checkout, which then times no parent) with this
+    tree's nvcc flags → {name: a function with the entry point's signature,
+    as the parent's wrapper called its library} or None."""
+    import ctypes
+    from multimodal_isic_tpu_torch.ops import _build
+    csrc = PARENT_ROOT / "multimodal_isic_tpu_torch" / "csrc"
+    if not (csrc / "fused_mlp.cu").exists():
+        return None
+    out_dir = Path(__file__).resolve().parent / "build" / "parent_kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def build(name):
+        lib = out_dir / f"{name}.so"
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                               str(lib), str(csrc / f"{name}.cu")],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent {name}.cu: {proc.stderr[-2000:]}")
+        return ctypes.CDLL(str(lib))
+
+    with ThreadPoolExecutor(2) as pool:
+        fo, mlp = pool.map(build, ("firstorder", "fused_mlp"))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fo.firstorder_accumulate.argtypes = [vp, vp, vp, vp, i32, i32, vp, vp]
+    fo.firstorder_workspace.argtypes = [i32, i32]
+    fo.firstorder_workspace.restype = ctypes.c_longlong
+    for sfx in ("f32", "bf16"):
+        getattr(mlp, f"fused_mlp_{sfx}").argtypes = [vp] * 6 + [i32] * 4 + [vp]
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def firstorder(x, lv):
+        b, n = x.shape
+        stats = torch.empty((b, 9), dtype=torch.float32, device=x.device)
+        hist = torch.empty((b, 64), dtype=torch.float32, device=x.device)
+        ws = torch.empty(fo.firstorder_workspace(b, n), dtype=torch.uint8,
+                         device=x.device)
+        rc = fo.firstorder_accumulate(x.data_ptr(), lv.data_ptr(),
+                                      stats.data_ptr(), hist.data_ptr(), b, n,
+                                      ws.data_ptr(), stream())
+        if rc != 0:
+            raise RuntimeError(f"parent firstorder_accumulate: error {rc}")
+        return stats, hist
+
+    def fused(x, w1, b1, w2, b2):  # the parent wrapper's transposes included
+        m, c = x.shape
+        f, c2 = w2.shape
+        w1k = w1.t().to(x.dtype).contiguous()
+        w2k = w2.t().to(x.dtype).contiguous()
+        b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
+        out = torch.empty((m, c2), dtype=x.dtype, device=x.device)
+        sfx = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        rc = getattr(mlp, f"fused_mlp_{sfx}")(
+            x.data_ptr(), w1k.data_ptr(), b1f.data_ptr(), w2k.data_ptr(),
+            b2f.data_ptr(), out.data_ptr(), m, c, f, c2, stream())
+        if rc != 0:
+            raise RuntimeError(f"parent fused_mlp: error {rc}")
+        return out
+
+    return {"firstorder_accumulate": firstorder, "fused_mlp": fused}
+
+
 def mlp_geometries():
     """(dtype, M, C, F, C2) of the bare MLP's calls: ConvViT-Base's conv
     stages 1 (C 256 → F 1024 → 256, M = B·56²) and 2 (384 → 1536 → 384,
@@ -2285,15 +2415,23 @@ def mlp_bound_ms(dtype, m, c, f, c2):
             ops_ms(bf16=ops) if dtype == torch.bfloat16 else ops_ms(f32=ops))
 
 
+def _kernel_names(fn, keys):
+    """Device kernels of one captured call of ``fn`` whose names hold one
+    of ``keys``."""
+    return [n for n in device_launches(fn) if any(k in n for k in keys)]
+
+
 def firstorder_and_mlp(device, fo_inputs):
     """Phase 12: the two kernels' own entry points, driven once with the
     launch counts at 0 (the 13 first-order calls of a radiomics chunk; the
     bare MLP at every geometry), then each result held against its plain
     version (first order: n, min, max and hist equal, the sums within
     SUM_TOL of their magnitude; the MLP within ``fused_mlp.TOL``), the same
-    bits on a rerun, the first-order edge cases, the first-order stats
-    against the port's own ``firstorder_features``, and the MLP's gradients
-    → (launches, worst |kernel − plain| per kernel)."""
+    bits on a rerun, the first-order edge cases and a map past the cluster
+    path's capacity (the two-pass path), the plans' paths and device
+    launches a call, the first-order stats against the port's own
+    ``firstorder_features``, and the MLP's gradients → (launches, worst
+    |kernel − plain| per kernel)."""
     from multimodal_isic_tpu_torch.ops import fused_mlp as FM
     from multimodal_isic_tpu_torch.ops import histogram as Hm
     from multimodal_isic_tpu_torch.ops import texture as T
@@ -2321,13 +2459,14 @@ def firstorder_and_mlp(device, fo_inputs):
           f"each sum within SUM_TOL {Hm.SUM_TOL} of its magnitude sum")
     cases = [(t, *fo_inputs[t], fo_out[t]) for t in fo_inputs]
     cases += [(label, x, lv, Hm.firstorder_accumulate(x, lv))
-              for label, x, lv in _firstorder_edge_cases(device)]
+              for label, x, lv in (*_firstorder_edge_cases(device),
+                                   _firstorder_large(device))]
     for label, x, lv, got in cases:
         want = Hm.firstorder_accumulate_reference(x, lv)
         again = Hm.firstorder_accumulate(x, lv)
         exact, ratio = Hm.firstorder_disagreement(x, lv, got, want)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        if label.startswith("empty"):  # map 0: the sentinels, sums 0
+        if label.startswith(("empty", "1000x1000")):  # map 0: sentinels, sums 0
             big = torch.tensor(3.4e38, device=device)
             st = got[0][0]
             exact = exact and bool(st[2] == big and st[3] == -big
@@ -2335,13 +2474,26 @@ def firstorder_and_mlp(device, fo_inputs):
         err = float((got[0] - want[0]).abs()[:, list(Hm.SUMS)].max())
         worst["firstorder_accumulate"] = max(worst["firstorder_accumulate"],
                                              err)
-        ok = exact and ratio <= 1.0 and same
-        print(f"check firstorder_accumulate {label} {tuple(x.shape)}: exact "
-              f"parts equal {exact}, worst sum error {ratio:.3e} of its "
-              f"tolerance (max_abs_err {err:.3e}), same bits on a rerun "
-              f"{same} ({'ok' if ok else 'FAIL'})")
+        plan = Hm.firstorder_plan(*x.shape)
+        path_ok = plan["path"] == ("two_pass" if label.startswith("1000x1000")
+                                   else "cluster")
+        ok = exact and ratio <= 1.0 and same and path_ok
+        print(f"check firstorder_accumulate {label} {tuple(x.shape)}: "
+              f"{plan['path']} path, exact parts equal {exact}, worst sum "
+              f"error {ratio:.3e} of its tolerance (max_abs_err {err:.3e}), "
+              f"same bits on a rerun {same} ({'ok' if ok else 'FAIL'})")
         if not ok:
             failures.append(f"firstorder_accumulate {label}")
+    # device launches a call: one on the cluster path, two on the two-pass
+    for label, x, lv in (("the chunk's call", *fo_inputs["original"]),
+                         _firstorder_large(device)):
+        names = _kernel_names(lambda: Hm.firstorder_accumulate(x, lv),
+                              ("firstorder",))
+        want_n = Hm.firstorder_plan(*x.shape)["launches"]
+        print(f"firstorder_accumulate device launches, {label}: "
+              f"{len(names)} ({', '.join(sorted(set(names)))}); want {want_n}")
+        if len(names) != want_n:
+            failures.append(f"firstorder_accumulate launches {label}")
 
     # the stats against the port's own first-order features ("original")
     x, lv = fo_inputs["original"]
@@ -2377,11 +2529,17 @@ def firstorder_and_mlp(device, fo_inputs):
         err, ok = _allclose_err(got, want, *FM.TOL[dtype])
         same = torch.equal(got, again)
         fin = bool(torch.isfinite(got).all()) and got.shape == (mm, c2)
-        ok = ok and same and fin
+        names = _kernel_names(lambda: FM.fused_mlp(*args),
+                              ("mlp_wgmma", "mlp_f32"))
+        plan = FM.mlp_plan(mm, c, f, c2, dtype)
+        ok = ok and same and fin and len(names) == 1
         worst["fused_mlp"] = max(worst["fused_mlp"], err)
         label = f"fused_mlp M {mm} C {c} F {f} C2 {c2} {str(dtype)[6:]}"
-        print(f"check {label}: max_abs_err {err:.3e}, finite [M, C2] {fin}, "
-              f"same bits on a rerun {same} ({'ok' if ok else 'FAIL'})")
+        print(f"check {label}: plan bm {plan['bm']} fc {plan['fc']} stages "
+              f"{plan['stages']} smem {plan['smem']}; max_abs_err {err:.3e}, "
+              f"finite [M, C2] {fin}, same bits on a rerun {same}, device "
+              f"kernels a call {len(names)} ({', '.join(names)}) "
+              f"({'ok' if ok else 'FAIL'})")
         if not ok:
             failures.append(label)
         del want, again
@@ -2406,61 +2564,109 @@ def firstorder_and_mlp(device, fo_inputs):
     return launches, worst
 
 
+def _interleaved_medians(fns, order, iters):
+    """Median ms a call of each of ``fns`` (name → function) over its turns
+    in ``order`` (CUDA events, ``timeit_closed``: each turn the median of 3
+    chains of ``iters[name]`` calls)."""
+    from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
+    runs = {}
+    for name in order:
+        runs.setdefault(name, []).append(
+            timeit_closed(fns[name], iters=iters[name], repeats=3)["median"])
+    return {k: float(np.median(v)) * 1e3 for k, v in runs.items()}
+
+
 def time_firstorder_and_mlp(device, fo_inputs):
     """The first-order kernel at the radiomics chunk's call (the original
     image, 64 maps of 450×600) and the bare MLP at the four conv-stage
-    geometries, each against its plain version and bound (CUDA events,
-    medians; no single PyTorch call computes either function) → name →
+    geometries, each against its plain version and bound, and against the
+    parent commit's kernel where ``PARENT_ROOT`` holds it (turns parent,
+    kernel, kernel, parent, parent, kernel: medians of 3; CUDA events); the
+    MLP also against its two products alone as ``torch.matmul`` (a
+    yardstick; no single PyTorch call computes either function) → name →
     (ms, plain ms, bound ms, bytes ms, operations ms, library ms).  The
     MLP's numbers are those of a ConvViT-Base encoder forward at bs 128
     bf16: two calls at stage 1 and two at stage 2."""
     from multimodal_isic_tpu_torch.ops import fused_mlp as FM
     from multimodal_isic_tpu_torch.ops import histogram as Hm
-    from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
+    parent = parent_kernels()
+    print("parent kernels: " + (f"built from {PARENT_ROOT}" if parent else
+                                "not timed (no parent checkout under "
+                                f"{PARENT_ROOT})"))
+    order = ["plain", "kernel", "kernel", "plain"]
+    if parent:
+        order = ["plain", "parent", "kernel", "kernel", "parent", "parent",
+                 "kernel", "plain"]
     out = {}
-    x, lv = fo_inputs["original"]
-    m = x.shape[0]
-    runs = {"kernel": [], "plain": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = (Hm.firstorder_accumulate if which == "kernel"
-              else Hm.firstorder_accumulate_reference)
-        runs[which].append(timeit_closed(lambda: fn(x, lv), iters=20,
-                                         repeats=3))
-    med = {k: min(r["median"] for r in v) * 1e3 for k, v in runs.items()}
-    b_bytes, b_ops = rad_bound_ms("firstorder_accumulate", m, *SRC_HW)
-    bound = max(b_bytes, b_ops)
-    print(f"time firstorder_accumulate M{m} {SRC_HW[0]}x{SRC_HW[1]}: kernel "
-          f"{med['kernel']:.4f} ms, plain {med['plain']:.4f} ms "
-          f"({med['plain'] / med['kernel']:.1f}x), library none; bound "
-          f"{bound:.4f} ms (bytes {b_bytes:.4f}, operations {b_ops:.4f}): "
-          f"{bound / med['kernel']:.1%} of it; 13 calls a chunk")
-    out["firstorder_accumulate"] = (med["kernel"], med["plain"], bound,
-                                    b_bytes, b_ops, None)
+    for i, (label, x, lv) in enumerate((("the chunk's call",
+                                         *fo_inputs["original"]),
+                                        _firstorder_large(device))):
+        fns = {"kernel": lambda: Hm.firstorder_accumulate(x, lv),
+               "plain": lambda: Hm.firstorder_accumulate_reference(x, lv)}
+        if parent:
+            fns["parent"] = lambda: parent["firstorder_accumulate"](x, lv)
+        med = _interleaved_medians(fns, order, {"kernel": 20, "parent": 20,
+                                                "plain": 5})
+        m, n = x.shape
+        b_bytes = (m * n * 8 + m * (9 + NG) * 4) / HBM_BPS * 1e3
+        b_ops = 10 * m * n / F32_FLOPS * 1e3
+        bound = max(b_bytes, b_ops)
+        path = Hm.firstorder_plan(m, n)["path"]
+        print(f"time firstorder_accumulate {label} ({m} maps of {n} px, "
+              f"{path} path): kernel {med['kernel']:.4f} ms, "
+              + (f"parent {med['parent']:.4f} ms, " if parent else "")
+              + f"plain {med['plain']:.4f} ms, library none; bound "
+              f"{bound:.4f} ms (bytes {b_bytes:.4f}, operations {b_ops:.4f}):"
+              f" {bound / med['kernel']:.1%} of it"
+              + (f" (parent {bound / med['parent']:.1%})" if parent else ""))
+        if i == 0:  # the kernels line keeps the chunk's call
+            out["firstorder_accumulate"] = (med["kernel"], med["plain"], bound,
+                                            b_bytes, b_ops, None)
 
     g = torch.Generator(device=device).manual_seed(SEED + 52)
-    tot = [0.0] * 5
+    tot = {k: 0.0 for k in ("kernel", "plain", "parent", "products", "bound",
+                            "bytes", "ops")}
     for geo in mlp_geometries()[:4]:
         args = _mlp_args(geo, device, g)
-        runs = {"kernel": [], "plain": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = FM.fused_mlp if which == "kernel" else FM.fused_mlp_reference
-            runs[which].append(timeit_closed(lambda: fn(*args), iters=10,
-                                             repeats=3))
-        med = {k: min(r["median"] for r in v) * 1e3 for k, v in runs.items()}
+        dtype, mm, c, f, c2 = geo
+        rn = lambda *sh: torch.randn(*sh, generator=g, device=device).to(dtype)
+        a_mid = rn(mm, f)
+        fns = {"kernel": lambda: FM.fused_mlp(*args),
+               "plain": lambda: FM.fused_mlp_reference(*args),
+               "products": lambda: (torch.matmul(args[0], args[1]),
+                                    torch.matmul(a_mid, args[3]))}
+        if parent:
+            fns["parent"] = lambda: parent["fused_mlp"](*args)
+        med = _interleaved_medians(fns, order + ["products", "products",
+                                                 "products"],
+                                   {"kernel": 10, "parent": 5, "plain": 3,
+                                    "products": 10})
         b_bytes, b_ops = mlp_bound_ms(*geo)
         bound = max(b_bytes, b_ops)
-        dtype, mm, c, f, c2 = geo
         print(f"time fused_mlp M {mm} C {c} F {f} C2 {c2} {str(dtype)[6:]}: "
-              f"kernel {med['kernel']:.4f} ms, plain (addmm, GELU, addmm) "
-              f"{med['plain']:.4f} ms ({med['plain'] / med['kernel']:.2f}x), "
-              f"library none; bound {bound:.4f} ms (bytes {b_bytes:.4f}, "
-              f"operations {b_ops:.4f}): {bound / med['kernel']:.1%} of it")
+              f"kernel {med['kernel']:.4f} ms, "
+              + (f"parent {med['parent']:.4f} ms, " if parent else "")
+              + f"plain (addmm, GELU, addmm) {med['plain']:.4f} ms "
+              f"({med['plain'] / med['kernel']:.2f}x), the two products "
+              f"alone (torch.matmul) {med['products']:.4f} ms, library none;"
+              f" bound {bound:.4f} ms (bytes {b_bytes:.4f}, operations "
+              f"{b_ops:.4f}): {bound / med['kernel']:.1%} of it"
+              + (f" (parent {bound / med['parent']:.1%})" if parent else ""))
         if dtype == torch.bfloat16:  # an encoder forward: 2 calls a stage
-            for i, v in enumerate((med["kernel"], med["plain"], bound,
-                                   b_bytes, b_ops)):
-                tot[i] += 2 * v
-        del args
-    out["fused_mlp"] = (*tot, None)
+            for k in ("kernel", "plain", "parent", "products"):
+                tot[k] += 2 * med.get(k, 0.0)
+            tot["bound"] += 2 * bound
+            tot["bytes"] += 2 * b_bytes
+            tot["ops"] += 2 * b_ops
+        del args, a_mid
+    print(f"time fused_mlp, an encoder forward's four bs 128 bf16 calls: "
+          f"kernel {tot['kernel']:.4f} ms, "
+          + (f"parent {tot['parent']:.4f} ms, " if parent else "")
+          + f"plain {tot['plain']:.4f} ms, the products alone "
+          f"{tot['products']:.4f} ms; bound {tot['bound']:.4f} ms: "
+          f"{tot['bound'] / tot['kernel']:.1%} of it")
+    out["fused_mlp"] = (tot["kernel"], tot["plain"], tot["bound"],
+                        tot["bytes"], tot["ops"], None)
     return out
 
 # ----------------------------------------------------- 13. the fusion CLI

@@ -34,7 +34,13 @@ GELU in float32 (:func:`gelu_f32`; the TPU kernel took the A&S 7.1.26 erf,
 ``erff`` through ``csrc/convmae_common.cuh``), rounded; ``a·w2`` in float32
 plus ``b2``, rounded.  The weights are read in x.dtype.  On a CUDA tensor
 :func:`fused_mlp` launches ``csrc/fused_mlp.cu`` or raises; on a CPU tensor
-it runs :func:`fused_mlp_reference`.  Its backward recomputes the plain
+it runs :func:`fused_mlp_reference`.  The wrapper owns the launch plan
+(:func:`mlp_plan`: rows a tile, F chunk, ring stages, shared-memory bytes),
+which the library holds it to.  bf16 runs on wgmma with the weight chunks
+brought in by TMA (``csrc/wgmma_chain.cuh``) and reads w1 [C, F] and
+w2 [F, C2] as they are; float32 runs on the cp.async FMA core of
+``csrc/chained_gemm.cuh``, which reads K-contiguous rows, so its wrapper
+passes w1ᵀ and w2ᵀ.  Its backward recomputes the plain
 version under autograd, as the JAX ``_bwd`` recomputes ``_reference_mlp``
 (:128-135): it has no kernel, in JAX either.  Launches are counted in
 ``fused_mlp.launches``.  No caller in the JAX package: it is an entry point
@@ -439,12 +445,34 @@ fused_ln_mlp_backward.launches = 0
 
 # ------------------------------------------------------------- the bare MLP
 
-# C2 the kernel is built for: the [rows, C2] accumulator of a row block
-# stays in registers across F, so registers bound C2; C is bounded by shared
-# memory (:func:`fused_mlp_smem_bytes` <= SMEM_LIMIT).
+# C2 the kernels are built for (their accumulators live in registers), and
+# the largest C at each (dtype, C2): the widths the library's configurations
+# cover within one block's shared memory (the first-cut kernel's limits,
+# kept: ``tests/test_torch_fused_mlp.py::test_kernel_shape_limits``).
 MLP_C2 = (128, 256, 384, 512)
-_MLP_TILE = {torch.float32: (32, 4), torch.bfloat16: (64, 8)}  # (rows, pad)
-_FC = 32  # the kernel's F chunk
+MLP_C_MAX = {(torch.bfloat16, 128): 1024, (torch.bfloat16, 256): 1024,
+             (torch.bfloat16, 384): 896, (torch.bfloat16, 512): 896,
+             (torch.float32, 128): 768, (torch.float32, 256): 640,
+             (torch.float32, 384): 640, (torch.float32, 512): 512}
+# The kernels' configurations, (rows a tile, F chunk, ring stages), the
+# plan's first choice first (``csrc/fused_mlp.cu``, which takes these and no
+# other).  bf16 (wgmma + TMA): 128-row tiles (a warpgroup's 64 rows each)
+# where the accumulator [64, C2] fits a warpgroup's registers (C2 <= 256),
+# else 64-row tiles whose C2 the two warpgroups split; F chunks of 64 in two
+# stages where they fit beside the x tile (the first product's m64 x 64
+# tiles read half the shared memory a product of m64 x 32 ones; two stages
+# of 64 hold as many weights in flight as four of 32, in as much shared
+# memory), else the deepest ring of 32-wide chunks, 16 where C is large.  float32 (the cp.async FMA core):
+# 64-row blocks, 32 rows where C is large, two stages.
+_MLP_TILES = {
+    torch.bfloat16: {c2: (((128, 64, 2), (128, 32, 3)) if c2 <= 256 else ())
+                     + ((64, 32, 3), (64, 32, 2), (64, 16, 3), (64, 16, 2))
+                     for c2 in MLP_C2},
+    torch.float32: {c2: ((64, 32, 2), (64, 16, 2), (32, 16, 2))
+                    for c2 in MLP_C2}}
+WG_CONSUMER_REGS = 232  # registers a consumer thread of the bf16 kernel
+F32_MAX_REGS = 255
+REG_MARGIN = 48  # a thread's registers besides its sums: addresses, loop state
 
 
 def fused_mlp_reference(x, w1, b1, w2, b2):
@@ -457,29 +485,79 @@ def fused_mlp_reference(x, w1, b1, w2, b2):
     return (a.float() @ w2.to(dt).float() + b2.float()).to(dt)
 
 
-def fused_mlp_smem_bytes(c: int, c2: int, dtype: torch.dtype) -> int:
-    """Shared memory of one block of ``csrc/fused_mlp.cu`` (its ``Smem``):
-    the x rows and a w1 chunk [rows + FC, C + pad], a w2 chunk [C2, FC +
-    pad] and the GELU tile [rows, FC + pad], each 16-byte aligned."""
-    rows, pad = _MLP_TILE[dtype]
-    esz = torch.finfo(dtype).bits // 8
+def mlp_smem_bytes(c: int, c2: int, bm: int, fc: int, stages: int,
+                   dtype: torch.dtype) -> int:
+    """Shared memory of one block of ``csrc/fused_mlp.cu``.  bf16 (its
+    ``wg_smem``): 1024 bytes to align the swizzled tiles, x [bm, C], each
+    stage a w1 chunk [C, fc] and a w2 chunk [fc, C2], 256 bytes of
+    mbarriers.  float32 (``f32_smem``): x [bm, C + 4], two stages of
+    w1ᵀ [fc, C + 4] and w2ᵀ [C2, fc + 4], the a tile [bm, fc + 4], each
+    16-byte aligned."""
+    if dtype == torch.bfloat16:
+        return 1024 + bm * c * 2 + stages * (c * fc + fc * c2) * 2 + 256
+    return (_a16(bm * (c + 4) * 4) + stages * (_a16(fc * (c + 4) * 4)
+            + _a16(c2 * (fc + 4) * 4)) + _a16(bm * (fc + 4) * 4))
 
-    def a16(n):
-        return (n + 15) & ~15
-    return (a16(rows * (c + pad) * esz) + a16(_FC * (c + pad) * esz)
-            + a16(c2 * (_FC + pad) * esz) + a16(rows * (_FC + pad) * esz))
+
+def mlp_regs(c2: int, bm: int, fc: int, dtype: torch.dtype) -> int:
+    """Registers a thread holds for its sums across an F chunk: bf16, a
+    consumer's accumulator (64 rows × its C2 columns / 128 threads), h
+    (64 × fc / 128) and a's A fragments (bf16 pairs); float32, the
+    accumulator (bm/8 rows × C2/32) and h (bm/8 × fc/8)."""
+    if dtype == torch.bfloat16:
+        c2w = c2 if bm == 128 else c2 // 2
+        return c2w // 2 + fc // 2 + fc // 4
+    return bm // 8 * (c2 // 32) + bm // 8 * (fc // 8)
+
+
+def _mlp_fits(cfg, c, c2, dtype) -> bool:
+    bm, fc, stages = cfg
+    budget = (WG_CONSUMER_REGS if dtype == torch.bfloat16
+              else F32_MAX_REGS) - REG_MARGIN
+    return (mlp_smem_bytes(c, c2, bm, fc, stages, dtype) <= SMEM_LIMIT
+            and mlp_regs(c2, bm, fc, dtype) <= budget)
 
 
 def check_mlp_kernel_shape(c: int, c2: int, dtype: torch.dtype) -> None:
-    """Raise ``ValueError`` where the card's kernel cannot take C, C2."""
+    """Raise ``ValueError`` where the card's kernels cannot take C, C2."""
     if c2 not in MLP_C2:
         raise ValueError(f"fused_mlp: the kernel takes C2 in {MLP_C2} (its "
                          f"accumulator lives in registers), got C2={c2}")
-    smem = fused_mlp_smem_bytes(c, c2, dtype)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_mlp: C={c}, C2={c2} in {dtype} need {smem} "
-                         f"B of shared memory, more than one block's "
-                         f"{SMEM_LIMIT} B")
+    cmax = MLP_C_MAX.get((dtype, c2), 0)
+    if c > cmax or not any(_mlp_fits(t, c, c2, dtype)
+                           for t in _MLP_TILES.get(dtype, {}).get(c2, ())):
+        raise ValueError(f"fused_mlp: C={c}, C2={c2} in {dtype}: no kernel "
+                         f"configuration within one block's {SMEM_LIMIT} B of "
+                         f"shared memory (C up to {cmax} at this C2)")
+
+
+def fused_mlp_smem_bytes(c: int, c2: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block of the configuration :func:`mlp_plan`
+    picks at C, C2 (any M)."""
+    return mlp_plan(1, c, 128, c2, dtype)["smem"]
+
+
+def mlp_plan(m: int, c: int, f: int, c2: int, dtype: torch.dtype) -> dict:
+    """The bare MLP's launch plan for x [M, C], F, C2: ``bm`` rows a tile,
+    F chunk ``fc``, ring ``stages``, ``smem`` (bytes a block; the library
+    refuses any other), ``tiles`` (row tiles, the last one ragged) and, in
+    bf16, ``split``: 1 where each consumer warpgroup owns 64 rows of a
+    128-row tile, 2 where both own the tile's 64 rows and half of C2 each.
+    The first configuration of ``_MLP_TILES`` whose chunk divides F and
+    that fits shared memory and the register budget."""
+    check_mlp_kernel_shape(c, c2, dtype)
+    if m < 0 or f <= 0:
+        raise ValueError(f"fused_mlp: no kernel plan for M={m}, F={f}")
+    for cfg in _MLP_TILES[dtype][c2]:
+        bm, fc, stages = cfg
+        if f % fc == 0 and _mlp_fits(cfg, c, c2, dtype):
+            return {"bm": bm, "fc": fc, "stages": stages,
+                    "smem": mlp_smem_bytes(c, c2, bm, fc, stages, dtype),
+                    "tiles": -(-m // bm),
+                    "split": 128 // bm if dtype == torch.bfloat16 else None,
+                    "regs": mlp_regs(c2, bm, fc, dtype)}
+    raise ValueError(f"fused_mlp: F={f} is not a multiple of the kernel's "
+                     f"chunks")
 
 
 @functools.cache
@@ -488,7 +566,7 @@ def _mlp_lib() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"fused_mlp_{sfx}")
-        fn.argtypes = [vp] * 6 + [i32] * 4 + [vp]
+        fn.argtypes = [vp] * 6 + [i32] * 7 + [ctypes.c_longlong, vp]
         fn.restype = i32
     lib.fused_mlp_error_string.argtypes = [i32]
     lib.fused_mlp_error_string.restype = ctypes.c_char_p
@@ -524,19 +602,24 @@ def _mlp_kernel(x, w1, b1, w2, b2):
     m, c = x.shape
     f, c2 = w2.shape
     x = _aligned(x)
-    w1k = w1.t().to(x.dtype).contiguous()   # [F, C]
-    w2k = w2.t().to(x.dtype).contiguous()   # [C2, F]
+    if x.dtype == torch.bfloat16:  # the weights as they are: [C, F], [F, C2]
+        w1k, w2k = _aligned(w1.to(x.dtype)), _aligned(w2.to(x.dtype))
+    else:  # the FMA core reads K-contiguous rows: [F, C] and [C2, F]
+        w1k = w1.t().to(x.dtype).contiguous()
+        w2k = w2.t().to(x.dtype).contiguous()
     b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
     _on(x.device, w1k, w2k, b1f, b2f)
     out = torch.empty((m, c2), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
+    plan = mlp_plan(m, c, f, c2, x.dtype)
     lib = _mlp_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, f"fused_mlp_{_SUFFIX[x.dtype]}")(
             x.data_ptr(), w1k.data_ptr(), b1f.data_ptr(), w2k.data_ptr(),
-            b2f.data_ptr(), out.data_ptr(), m, c, f, c2, stream)
+            b2f.data_ptr(), out.data_ptr(), m, c, f, c2, plan["bm"],
+            plan["fc"], plan["stages"], plan["smem"], stream)
     if rc != 0:
         raise RuntimeError("fused_mlp launch failed: "
                            f"{lib.fused_mlp_error_string(rc).decode()}")

@@ -26,9 +26,11 @@ magnitude (:func:`firstorder_scales`), the counts, min and max exactly.  No
 caller in the JAX package: it is an entry point of its own.
 
 - On a CUDA tensor :func:`joint_histogram` launches ``csrc/histogram.cu`` and
-  :func:`firstorder_accumulate` ``csrc/firstorder.cu`` (two phases, a
-  fixed-order reduction: a rerun gives the same bits), or raise: there is no
-  fallback.
+  :func:`firstorder_accumulate` ``csrc/firstorder.cu``, or raise: there is no
+  fallback.  First order follows :func:`firstorder_plan`: a map that fits
+  one thread-block cluster's shared memory (the radiomics chunk's 450×600)
+  is read once, by one launch; a larger one takes two phases over device
+  memory.  Both reduce in a fixed order: a rerun gives the same bits.
 - On a CPU tensor they run :func:`joint_histogram_reference` (one count over
   the key row·na·nb + (a−1)·nb + (b−1)) and
   :func:`firstorder_accumulate_reference`.
@@ -211,14 +213,58 @@ def firstorder_disagreement(image: torch.Tensor, levels: torch.Tensor,
     ratio = torch.where(err == 0, 0.0, err / scale)
     return exact, float(ratio.max()) if ratio.numel() else 0.0
 
+# The card's first-order kernel (csrc/firstorder.cu; its constants of the
+# same names): a map that one thread-block cluster of FO_CLUSTER blocks
+# keeps in shared memory takes the cluster path, a larger one the two-pass
+# path.
+FO_CLUSTER = 16     # blocks a map: a non-portable cluster size
+FO_THREADS = 512    # a cluster block: 16 warps, each compacting a region
+FO_STATIC = 8192    # a cluster block's static shared memory, at most
+FO_SMS, FO_MIN_CHUNK, FO_NSUM = 132, 4096, 5  # the two-pass path's grid
+
+
+def _a(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
+def firstorder_plan(b: int, n: int) -> dict:
+    """The card's launch plan for B maps of N pixels, which the library
+    recomputes and holds the wrapper to.  ``path`` "cluster": one
+    thread-block cluster of ``cluster`` blocks a map, block r reading pixels
+    [r·slice, (r + 1)·slice) once and its warps compacting the values of
+    their valid pixels into ``region`` floats each (128 a step of the
+    16-byte walk, 32 more for a scalar head and tail): ``smem`` bytes of
+    dynamic shared memory beside ``FO_STATIC`` of static, one launch.
+    ``path`` "two_pass" where a block cannot keep its slice: (chunk, map)
+    blocks, two launches, ``workspace`` bytes of partials and tickets (the
+    library's ``carve``).  Raises ``ValueError`` for sizes no path takes."""
+    if b < 1 or b > _MAX_ROWS or n < 1:
+        raise ValueError(f"firstorder_accumulate: no plan for {b} maps of "
+                         f"{n} pixels")
+    p = _a(-(-n // FO_CLUSTER), 4)
+    region = 128 * -(-(p // 4) // FO_THREADS) + 32
+    smem = FO_THREADS // 32 * region * 4
+    if smem + FO_STATIC <= SMEM_LIMIT:
+        return {"path": "cluster", "cluster": FO_CLUSTER, "slice": p,
+                "region": region, "smem": smem, "workspace": 0,
+                "launches": 1}
+    want = max(1, -(-4 * FO_SMS // b))
+    want = min(want, max(1, -(-n // FO_MIN_CHUNK)))
+    chunk = _a(-(-n // want), 4)
+    parts = b * -(-n // chunk)
+    ws = sum(_a(v, 256) for v in (parts * 24, parts * FO_NSUM * 8,
+                                  parts * NG * 4, b * 4))
+    return {"path": "two_pass", "cluster": 0, "slice": 0, "region": 0,
+            "smem": 0, "workspace": ws, "launches": 2}
+
+
 @functools.cache
 def _fo_lib() -> ctypes.CDLL:
     lib = _build.load("firstorder")
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.firstorder_accumulate.argtypes = [vp, vp, vp, vp, i32, i32, vp, vp]
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.firstorder_accumulate.argtypes = ([vp] * 4 + [i32] * 6
+                                          + [i64, vp, i64, vp])
     lib.firstorder_accumulate.restype = i32
-    lib.firstorder_workspace.argtypes = [i32, i32]
-    lib.firstorder_workspace.restype = ctypes.c_longlong
     lib.firstorder_error_string.argtypes = [i32]
     lib.firstorder_error_string.restype = ctypes.c_char_p
     return lib
@@ -256,16 +302,19 @@ def firstorder_accumulate(image: torch.Tensor, levels: torch.Tensor):
         stats[:, 2], stats[:, 3] = _BIG, -_BIG
         return stats, torch.zeros((rows, NG), dtype=torch.float32,
                                   device=image.device)
+    plan = firstorder_plan(rows, n)
     stats = torch.empty((rows, 9), dtype=torch.float32, device=image.device)
     hist = torch.empty((rows, NG), dtype=torch.float32, device=image.device)
+    ws = (torch.empty(plan["workspace"], dtype=torch.uint8,
+                      device=image.device) if plan["workspace"] else None)
     lib = _fo_lib()
-    ws = torch.empty(lib.firstorder_workspace(rows, n), dtype=torch.uint8,
-                     device=image.device)
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
-        rc = lib.firstorder_accumulate(image.data_ptr(), levels.data_ptr(),
-                                       stats.data_ptr(), hist.data_ptr(),
-                                       rows, n, ws.data_ptr(), stream)
+        rc = lib.firstorder_accumulate(
+            image.data_ptr(), levels.data_ptr(), stats.data_ptr(),
+            hist.data_ptr(), rows, n, 0 if plan["path"] == "cluster" else 1,
+            plan["cluster"], plan["slice"], plan["region"], plan["smem"],
+            None if ws is None else ws.data_ptr(), plan["workspace"], stream)
     if rc != 0:
         raise RuntimeError("firstorder_accumulate launch failed: "
                            f"{lib.firstorder_error_string(rc).decode()}")

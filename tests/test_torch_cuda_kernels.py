@@ -553,6 +553,29 @@ def test_firstorder_kernel_matches_plain(cuda, b, n, offset):
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
+@pytest.mark.parametrize("b,n,path", [(64, 450 * 600, "cluster"),
+                                      (2, 884736, "cluster"),
+                                      (2, 884737, "two_pass"),
+                                      (4, 1000 * 1000, "two_pass")])
+def test_firstorder_kernel_paths(cuda, b, n, path):
+    """Both paths of the plan: the radiomics chunk's maps and the cluster's
+    capacity read once by one launch, larger maps by the two-pass kernels;
+    each equal to the plain version in n, min, max and hist, its sums within
+    SUM_TOL, the same bits on a rerun."""
+    assert hist.firstorder_plan(b, n)["path"] == path
+    g = torch.Generator(device=cuda).manual_seed(18)
+    x, lv = _firstorder_maps(g, b, n, 0, cuda)
+    got = hist.firstorder_accumulate(x, lv)
+    want = hist.firstorder_accumulate_reference(x, lv)
+    exact, ratio = hist.firstorder_disagreement(x, lv, got, want)
+    assert exact and ratio <= 1.0, ratio
+    again = hist.firstorder_accumulate(x, lv)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    names = [n for n in _profile_kernels(
+        lambda: hist.firstorder_accumulate(x, lv)) if "firstorder" in n]
+    assert len(names) == hist.firstorder_plan(b, n)["launches"], names
+
+
 def test_firstorder_kernel_rejects_what_it_cannot_take(cuda):
     x = torch.zeros(4, 8, device=cuda)
     lv = torch.ones(4, 8, dtype=torch.int32, device=cuda)
@@ -1068,6 +1091,40 @@ def test_fused_mlp_kernel_matches_plain(cuda, dtype, m, c, f, c2):
     assert got.dtype == dtype and got.shape == (m, c2)
     _close(got, fm.fused_mlp_reference(*args), fm.TOL[dtype])
     assert torch.equal(got, fm.fused_mlp(*args))  # the same bits on a rerun
+
+
+# one shape a configuration of the plan: (dtype, M, C, F, C2) → (bm, fc,
+# stages); ragged M throughout
+CONFIGS = [(torch.bfloat16, 129, 256, 384, 128, (128, 64, 2)),
+           (torch.bfloat16, 1000, 384, 512, 256, (128, 32, 3)),
+           (torch.bfloat16, 777, 384, 1536, 384, (64, 32, 3)),
+           (torch.bfloat16, 300, 1024, 512, 256, (64, 16, 2)),
+           (torch.bfloat16, 999, 896, 256, 512, (64, 16, 2)),
+           (torch.float32, 1000, 256, 1024, 256, (64, 32, 2)),
+           (torch.float32, 777, 384, 1536, 384, (64, 16, 2)),
+           (torch.float32, 200, 768, 256, 128, (32, 16, 2))]
+
+
+@pytest.mark.parametrize("dtype,m,c,f,c2,cfg", CONFIGS,
+                         ids=[f"{str(t[0])[6:]}-{t[1]}-{t[2]}-{t[4]}"
+                              for t in CONFIGS])
+def test_fused_mlp_kernel_every_configuration(cuda, dtype, m, c, f, c2, cfg):
+    """Each configuration the plan picks (row tiles, F chunk, ring stages)
+    against the plain version within ``fused_mlp.TOL``, the same bits on a
+    rerun, one launch a call and one device kernel."""
+    p = fm.mlp_plan(m, c, f, c2, dtype)
+    assert (p["bm"], p["fc"], p["stages"]) == cfg
+    g = torch.Generator(device=cuda).manual_seed(19)
+    args = _mlp_args(g, m, c, f, c2, dtype, cuda)
+    before = fm.fused_mlp.launches
+    got = fm.fused_mlp(*args)
+    assert fm.fused_mlp.launches == before + 1
+    torch.cuda.synchronize()
+    _close(got, fm.fused_mlp_reference(*args), fm.TOL[dtype])
+    assert torch.equal(got, fm.fused_mlp(*args))
+    names = [n for n in _profile_kernels(lambda: fm.fused_mlp(*args))
+             if "mlp_" in n]
+    assert len(names) == 1, names
 
 
 def test_fused_mlp_kernel_stays_on_the_autograd_graph(cuda):

@@ -172,3 +172,61 @@ def test_wrapper_rejects_bad_arguments(bad):
     }[bad]
     with pytest.raises(ValueError):
         thist.firstorder_accumulate(image, levels)
+
+
+@pytest.mark.parametrize("b,n,path", [(64, 450 * 600, "cluster"),
+                                      (3, 4800, "cluster"), (1, 3, "cluster"),
+                                      (2, 884736, "cluster"),
+                                      (2, 884737, "two_pass"),
+                                      (4, 1000 * 1000, "two_pass")])
+def test_firstorder_plan_paths(b, n, path):
+    """The radiomics chunk's maps (450×600) take the cluster path: one
+    launch, the slices of the cluster cover the map, a block's shared memory
+    within the card's; a map past the cluster's capacity takes the two-pass
+    path with its workspace."""
+    p = thist.firstorder_plan(b, n)
+    assert p["path"] == path
+    if path == "cluster":
+        assert p["launches"] == 1 and p["workspace"] == 0
+        even = -(-n // p["cluster"])  # the map split evenly, to 4 pixels
+        assert p["slice"] % 4 == 0 and even <= p["slice"] < even + 4
+        assert p["smem"] + thist.FO_STATIC <= thist.SMEM_LIMIT
+        assert p["smem"] == thist.FO_THREADS // 32 * p["region"] * 4
+    else:
+        assert p["launches"] == 2 and p["workspace"] > 0 and p["smem"] == 0
+
+
+def _warp_counts(length, head, vec):
+    """Pixels each warp of a cluster block takes from a slice of ``length``
+    pixels (the kernel's walk: a scalar head of ``head`` pixels before the
+    first 16-byte boundary, 16-byte vectors of 4, a scalar tail; every walk
+    in warp-uniform steps of 32 lanes over FO_THREADS threads)."""
+    threads = thist.FO_THREADS
+    counts = np.zeros(threads // 32, np.int64)
+    head = min(length, head) if vec else length
+    nv = (length - head) // 4
+
+    def scalars(lo, hi):
+        for w in range(threads // 32):
+            for i0 in range(lo + 32 * w, hi, threads):
+                counts[w] += min(32, hi - i0)
+
+    scalars(0, head)
+    for w in range(threads // 32):
+        for v0 in range(32 * w, nv, threads):
+            counts[w] += 4 * min(32, nv - v0)
+    scalars(head + 4 * nv, length)
+    return counts
+
+
+@pytest.mark.parametrize("n", [450 * 600, 450 * 600 - 1, 4801, 884736, 3])
+def test_firstorder_cluster_regions_hold_every_pixel(n):
+    """A model of the kernel's walk: no warp takes more pixels than its
+    region holds, at every phase against 16 bytes and without vectors."""
+    p = thist.firstorder_plan(1, n)
+    for r in range(p["cluster"]):
+        length = max(0, min(n, (r + 1) * p["slice"]) - min(n, r * p["slice"]))
+        for head, vec in ((0, True), (1, True), (3, True), (0, False)):
+            counts = _warp_counts(length, head, vec)
+            assert counts.sum() == length
+            assert counts.max() <= p["region"], (r, head, vec)

@@ -123,3 +123,93 @@ def test_kernel_shape_limits(c, c2, dtype, ok):
     else:
         with pytest.raises(ValueError):
             tfm.check_mlp_kernel_shape(c, c2, dtype)
+
+
+# The bare MLP's calls on the card (chip_smoke.mlp_geometries): ConvViT-Base's
+# conv stages at bs 16 float32 and bs 128 bf16, and C2 != C at a ragged M.
+GEOMETRIES = [(torch.float32, 16 * 56 * 56, 256, 1024, 256),
+              (torch.float32, 16 * 28 * 28, 384, 1536, 384),
+              (torch.bfloat16, 128 * 56 * 56, 256, 1024, 256),
+              (torch.bfloat16, 128 * 28 * 28, 384, 1536, 384),
+              (torch.float32, 1000, 128, 512, 256),
+              (torch.bfloat16, 1000, 128, 512, 256)]
+
+
+def _first_cut_smem(c, c2, dtype):
+    """Shared memory of the first-cut kernel's block (rows 64 bf16 / 32
+    float32, pad 8 / 4, F chunks of 32): the shapes it took, which the
+    redesign must take too."""
+    rows, pad = (64, 8) if dtype == torch.bfloat16 else (32, 4)
+    esz = 2 if dtype == torch.bfloat16 else 4
+    a16 = lambda n: (n + 15) & ~15  # noqa: E731
+    return (a16(rows * (c + pad) * esz) + a16(32 * (c + pad) * esz)
+            + a16(c2 * (32 + pad) * esz) + a16(rows * (32 + pad) * esz))
+
+
+@pytest.mark.parametrize("geo", GEOMETRIES,
+                         ids=lambda g: f"{str(g[0])[6:]}-{g[1]}-{g[2]}-{g[4]}")
+def test_mlp_plan_at_the_geometries(geo):
+    """Every row in one tile, F walked in whole chunks, a block's shared
+    memory and a thread's sums within the card's limits; bf16 keeps at least
+    96 columns of F in flight (chunks of 64 in two stages, or of 32 in three
+    or more), 128-row tiles (64 rows a consumer warpgroup) where C2 <= 256
+    and 64-row tiles split over C2 beyond."""
+    dtype, m, c, f, c2 = geo
+    p = tfm.mlp_plan(m, c, f, c2, dtype)
+    assert p["tiles"] * p["bm"] >= m > (p["tiles"] - 1) * p["bm"]
+    assert f % p["fc"] == 0 and p["smem"] <= tfm.SMEM_LIMIT
+    assert p["smem"] == tfm.mlp_smem_bytes(c, c2, p["bm"], p["fc"],
+                                           p["stages"], dtype)
+    if dtype == torch.bfloat16:
+        assert p["stages"] * p["fc"] >= 96 and p["stages"] >= 2
+        assert (p["bm"], p["split"]) == ((128, 1) if c2 <= 256 else (64, 2))
+        assert p["regs"] <= tfm.WG_CONSUMER_REGS - tfm.REG_MARGIN
+    else:
+        assert p["stages"] == 2 and p["bm"] == 64
+        assert p["regs"] <= tfm.F32_MAX_REGS - tfm.REG_MARGIN
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c2", [128, 256, 384, 512])
+def test_mlp_plan_takes_what_the_first_cut_took(dtype, c2):
+    """The plan takes exactly the C the first-cut kernel took at each
+    (C2, dtype), each with a configuration that fits one block; it refuses
+    the others."""
+    for c in range(128, 2049, 128):
+        took = _first_cut_smem(c, c2, dtype) <= tfm.SMEM_LIMIT
+        if took:
+            p = tfm.mlp_plan(777, c, 512, c2, dtype)
+            assert p["smem"] <= tfm.SMEM_LIMIT
+            assert tfm.fused_mlp_smem_bytes(c, c2, dtype) == p["smem"]
+        else:
+            with pytest.raises(ValueError):
+                tfm.mlp_plan(777, c, 512, c2, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_plans_are_the_librarys_configurations(dtype):
+    """Every (C2, rows, F chunk) the plan gives over the shapes it takes is
+    one the library instantiates (``csrc/fused_mlp.cu``'s MLP_PLANS_*)."""
+    import re
+    from pathlib import Path
+    src = (Path(tfm.__file__).parents[1] / "csrc" / "fused_mlp.cu").read_text()
+    macro = "MLP_PLANS_BF16" if dtype == torch.bfloat16 else "MLP_PLANS_F32"
+    body = src.split(f"#define {macro}(X)")[1].split("\n\n")[0].split("#define")[0]
+    built = {tuple(map(int, t)) for t in
+             re.findall(r"X\((\d+), (\d+), (\d+)\)", body)}
+    used = set()
+    for c2 in tfm.MLP_C2:
+        for c in range(128, tfm.MLP_C_MAX[(dtype, c2)] + 1, 128):
+            for f in (128, 384, 1024, 1536):
+                p = tfm.mlp_plan(300, c, f, c2, dtype)
+                used.add((c2, p["bm"], p["fc"]))
+    assert used <= built, used - built
+
+
+def test_mlp_plan_refuses_what_no_configuration_takes():
+    with pytest.raises(ValueError, match="C2 in"):
+        tfm.mlp_plan(8, 128, 128, 640, torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfm.mlp_plan(8, 640, 128, 512, torch.float32)
+    with pytest.raises(ValueError, match="F="):
+        tfm.mlp_plan(8, 128, 200, 128, torch.float32)
