@@ -158,7 +158,7 @@ width with random weights from a seed:
 16. the MIL search on phase 14's latents, every launch count at 0 before
    each run and still 0 after it (the search launches no kernel):
    ``cli.tune_mil`` at ``mil`` and ``graph-mil``, ``--packed auto`` and
-   ``never``, 8 samples of 4 epochs at ASHA grace 1, rf 2 (depth cuts of
+   ``never``, 8 samples of 2 epochs at ASHA grace 1, rf 2 (depth cuts of
    the CLI's 1000 samples × 200 epochs at grace 10: the artifacts, finite
    val_bacc, no trial error, ``best_config`` in the space); a cohort member
    against the sequential trial at dropout 0, ``best_params*`` widths, 40
@@ -188,7 +188,29 @@ width with random weights from a seed:
    table: the approximate kNN graph (k 15, default nprobe) with recall@15
    on 4,096 sampled queries ≥ ``REF_RECALL``, HDBSCAN and the neighbour
    embedding on that graph, k-means (k 20), each stage's time and peak
-   memory.
+   memory;
+18. the parallel layer in 2 processes sharing the card over gloo (each
+   group of ranks started by ``run_group``: a ``FileStore`` under
+   ``build/``, a wall timeout, every rank's output kept; a failed or late
+   rank fails the phase), after a world-1 group through the backend rule
+   (nccl): 18a the fusion data-parallel step (B3@380 f32, global bs 16 = 2
+   × 8, the fast policy, global-batch BatchNorm, dropout on, 4 steps) and
+   18c's MAE data-parallel step (ConvViT-Base f32, bs 16, mask 0.75,
+   B9/B10, SGD) against one process on rank 0 (``PAR_TOL``), one warp
+   launch a step a rank, 4 + 4 B9/B10 launches a step; 18d the MAE
+   tensor-parallel step (the transformer blocks split over the 2 ranks, B11
+   on 6 of 12 and 8 of 16 heads: 19 launches a step a rank) against the
+   replicated model; then ``cli.main`` (18b: 1 epoch from phase 13's files,
+   the streaming loader; one run record, finite losses, the test pass's 32
+   true rows, the checkpoint restored in one process within
+   ``RANK_LOGIT_TOL``, 2 + 20 MBConv launches a test forward and one warp a
+   train step a rank), ``cli.train_ae`` (18c: 1 epoch; its ``val_n_true``
+   loss against one process on the saved weights within ``PAR_VAL_RTOL``),
+   ``cli.extract_radiomics`` (18e: phase 14's frames within ``RAD_TOL`` in
+   the same row order, 13 launches of B4–B7 a chunk a rank) and
+   ``cli.tune_mil`` (18f: ``mil``, 8 samples × 2 epochs, one table on both
+   ranks, artifacts on rank 0 only, no launch) in the same 2 processes;
+   prints both clocks of each, with no claim.
 
 Float32 on the card runs in full float32 here: TF32 is off for cuDNN and
 cuBLAS throughout (``torch.backends.cudnn.allow_tf32 = False``).
@@ -3991,7 +4013,7 @@ def mil_chain(device, root, config, mae):
 
 
 HPO_SAMPLES = 8        # depth cut: cli.tune_mil's default is 1000 samples
-HPO_EPOCHS = 4         # depth cut: its default is 200 epochs
+HPO_EPOCHS = 2         # depth cut: its default is 200 epochs
 HPO_GRACE, HPO_RF = 1, 2   # ASHA: the CLI's grace 10 cut with the epochs
 HPO_MEMBER_BAGS, HPO_MEMBER_EPOCHS = 40, 2   # 16b: 32 train + 8 val bags
 MEMBER_LOSS_RTOL = 1e-4
@@ -4720,6 +4742,401 @@ def cluster_chain(device, root, config):
     return {"runs": runs, "agree": agree, "ref": ref}
 
 
+# ----------------------------------------------- 18. several processes
+
+PAR_RANKS = 2             # ranks a group: two processes share the one card
+PAR_TIMEOUT_S = 240       # wall timeout of a group of ranks
+PAR_BATCH = 16            # 18a, 18c, 18d: the global batch (8 a rank)
+PAR_STEPS = 4             # 18a: fusion train steps from one seed
+# 18a-18d, the parallel programs against one process on the card
+# (``parallel.checks.compare_states``): after the steps, |got − want| ≤
+# atol + rtol·|want| for every parameter and BN statistic; losses rtol 1e-5.
+# float32 sums in another order (global-batch BN's parallel variance, the
+# ranks' gradient mean, the row-split partial products), no TF32
+PAR_TOL = dict(rtol=1e-4, atol=1e-6)
+# 18b: the 2-rank test pass (8 rows a forward) against one process's
+# evaluation of the same checkpoint (16 rows a forward): other GEMM shapes
+RANK_LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
+PAR_VAL_RTOL = 1e-5       # 18c: the gathered val_n_true loss, one process
+# 18a/c/d's sizes, handed to the ranks (a CPU rehearsal shrinks them)
+PAR_PROGRAMS = dict(hw=IMG, src_hw=450, batch=PAR_BATCH, steps=PAR_STEPS,
+                    mae_img=224)
+PAR_MAE_SIZE = "base"     # 18c's cli.train_ae model (ConvViT-Base)
+PAR_HPO = ["--model_type", "mil", "--num_samples", "8", "--max_epochs", "2",
+           "--patience", "2", "--grace_period", "1", "--cohort_size", "4"]
+
+
+def run_group(n, target, kwargs, label, timeout_s=PAR_TIMEOUT_S):
+    """Ranks 0..n-1 of ``target`` ('module:function') with a ``FileStore``
+    under ``build/``, a wall timeout and every rank's output kept
+    (``build/ranks_*/rank<r>.log``) → (each rank's result, wall seconds).
+    A rank that fails or a group past its timeout fails the phase."""
+    from multimodal_isic_tpu_torch.parallel.launch import (rank_command,
+                                                           rank_results,
+                                                           run_ranks)
+    work = Path(__file__).resolve().parent / "build"
+    work.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    outs = run_ranks(n, rank_command(target, kwargs), str(work), timeout_s)
+    wall = time.perf_counter() - t0
+    for r, out in enumerate(outs):
+        for line in out.splitlines():
+            if line.startswith(("torch.distributed:", "  [rank")):
+                print(f"  {label} rank {r}: {line}")
+    return rank_results(outs), wall
+
+
+def _rank_setup(device):
+    """A rank of phase 18: TF32 off as in every phase, the group joined
+    (gloo: the ranks share the card), the grid and the rank's device."""
+    from multimodal_isic_tpu_torch.parallel import distributed as D
+    from multimodal_isic_tpu_torch.parallel.sharding import make_grid
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    D.initialize(device=device)
+    return make_grid(), D.rank_device(device)
+
+
+def rank_programs(device, hw, src_hw, batch, steps, mae_img):
+    """18a, 18c's step and 18d in one rank: the fusion DP steps (B3@380
+    f32, the fast policy), the MAE DP step (ConvViT-Base f32, B9/B10), the
+    MAE TP step (its blocks split over the 2 ranks, B11 on the local
+    heads), each against one process on rank 0."""
+    from multimodal_isic_tpu_torch.parallel import checks as C
+    from multimodal_isic_tpu_torch.parallel.sharding import make_grid
+    grid, device = _rank_setup(device)
+    out = {"fusion": C.fusion_dp_check(
+        grid, device, backbone="efficientnet-b3", hw=hw, src_hw=src_hw,
+        batch=batch, steps=steps, **PAR_TOL)}
+    out["mae"] = C.mae_check(grid, device, dict(
+        img_size=mae_img, norm_pix_loss=True, use_fused_mlp=True),
+        batch=batch, mask_ratio=MASK_RATIO, **PAR_TOL)
+    out["tp"] = C.mae_check(make_grid(n_model=PAR_RANKS), device, dict(
+        img_size=mae_img, norm_pix_loss=True, use_fused_mlp=True,
+        use_flash_attention=True), batch=batch, mask_ratio=MASK_RATIO,
+        tp=True, **PAR_TOL)
+    return out
+
+
+def _want_launches(label, got, want):
+    """Fail unless every rank's launch counts ``got`` are ``want``."""
+    if got != [want] * len(got):
+        raise AssertionError(f"{label}: launches a rank {got} != {want}")
+
+
+def rank_clis(paths, hpo_dir, frame_path, device):
+    """18b, 18c's CLI, 18e and 18f in one rank: ``cli.main``,
+    ``cli.train_ae``, ``cli.extract_radiomics`` and ``cli.tune_mil`` one
+    after the other under ``ISIC_*``, each with the launch counts at 0
+    before it and read after it."""
+    import importlib.util
+    from multimodal_isic_tpu_torch.cli import extract_radiomics as XR
+    from multimodal_isic_tpu_torch.cli import main as M
+    from multimodal_isic_tpu_torch.cli import train_ae as TA
+    from multimodal_isic_tpu_torch.cli import tune_mil as TU
+    from multimodal_isic_tpu_torch.parallel import distributed as D
+    from multimodal_isic_tpu_torch.utils import viz
+    _, dev = _rank_setup(device)
+    rank = D.process_index()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    if importlib.util.find_spec("matplotlib") is None:
+        _plots_without_matplotlib(viz)  # the hook's plots raise, recorded
+    out = {}
+    for name, run in (
+            ("main", lambda: M.main(["--config_path", paths["main"]])),
+            ("train_ae", lambda: TA.main(["--config_path", paths["mae"]])),
+            ("extract_radiomics",
+             lambda: XR.main(["--config_path", paths["rad"]])),
+            ("tune_mil", lambda: TU.main([
+                "--config_path", paths["hpo"], *PAR_HPO, "--patch_df",
+                frame_path, "--output_dir", f"{hpo_dir}{rank}"]))):
+        _reset_every_launch()
+        sync()
+        t0 = time.perf_counter()
+        res = run()
+        sync()
+        out[name] = {"wall": time.perf_counter() - t0,
+                     "launches": _every_launch_counts()}
+        if name == "main":
+            np.save(f"{paths['main']}.logits{rank}.npy", res["logits"].numpy())
+            out[name].update(model_path=res["model_path"],
+                             run_dir=res["run_dir"])
+        elif name == "train_ae":
+            out[name].update(model_path=res["model_path"],
+                             run_dir=res["run_dir"],
+                             val=res["best_val_loss"],
+                             history=res["history"])
+        elif name == "tune_mil":
+            res["results"].to_csv(f"{hpo_dir}{rank}.csv", index=False)
+    return out
+
+
+def _every_launch_counts():
+    return {k: int(fn.launches) for k, fn in _every_launch().items()}
+
+
+def _nccl_world_one(device):
+    """A world-1 group through the backend rule (one rank, one card:
+    nccl) on a ``FileStore``: an all-reduce, an object gather, a barrier."""
+    from multimodal_isic_tpu_torch.parallel import distributed as D
+    store = Path(__file__).resolve().parent / "build" / "nccl_world1.store"
+    store.unlink(missing_ok=True)
+    D.initialize(store.as_uri(), 1, 0, device=device)
+    try:
+        import torch.distributed as dist
+        backend = dist.get_backend()
+        got = D.gather_to_host(torch.arange(4, device=device))
+        objs = D.all_gather_object({"rank": 0})
+        D.barrier()
+    finally:
+        D.shutdown()
+    if backend != "nccl" or got.tolist() != [0, 1, 2, 3] or objs != [
+            {"rank": 0}]:
+        raise AssertionError(f"world-1 group: backend {backend}, {got}, "
+                             f"{objs}")
+    print("18: a world-1 group on the card: the rule chose nccl; "
+          "all-reduce, object gather and barrier ran")
+
+
+def _held(label, r):
+    if not (r["err"]["ok"] and r["losses_ok"]):
+        raise AssertionError(f"{label}: {r['err']}, losses_ok "
+                             f"{r['losses_ok']}")
+
+
+def parallel_chain(device, root, config, rad_frames, frame_path):
+    """Phase 18: the parallel layer in 2 processes on the one card (gloo)
+    → numbers for PERF.md.  ``rad_frames`` are the one-process radiomics
+    frames of ``config``'s manifests (phase 14's), ``frame_path`` a patch
+    frame (phase 14's latents)."""
+    import pandas as pd
+    from multimodal_isic_tpu_torch.cli.main import GLOBAL_BS, _empty_model
+    from multimodal_isic_tpu_torch.core import checkpoint
+    from multimodal_isic_tpu_torch.core.rng import RngPool
+    from multimodal_isic_tpu_torch.data import augment
+    from multimodal_isic_tpu_torch.data.pipeline import (DermRecords,
+                                                         DeviceLoader)
+    from multimodal_isic_tpu_torch.models.convmae import ConvMAE
+    from multimodal_isic_tpu_torch.models.fusion import fold_fusion_params
+    from multimodal_isic_tpu_torch.train import fusion as T
+    from multimodal_isic_tpu_torch.train.mae import \
+        make_mae_eval_persample_step
+    from multimodal_isic_tpu_torch.utils.logging import read_metrics
+    import os
+    import shutil
+    from multimodal_isic_tpu_torch.core.splits import StratifiedKFold
+    out = {}
+    _nccl_world_one(device)
+
+    # 18a, 18c's step, 18d: the parallel programs against one process
+    res, wall = run_group(PAR_RANKS, "chip_smoke:rank_programs",
+                          dict(PAR_PROGRAMS, device=device.type), "18a/c/d")
+    out["programs_wall"] = wall
+    fus = res[0]["fusion"]
+    _held("18a fusion DP", fus)
+    warps = [r["fusion"]["warp_launches"] for r in res]
+    print(f"18a fusion DP (B3@380 f32, global bs {PAR_BATCH} = "
+          f"{PAR_RANKS} × {PAR_BATCH // PAR_RANKS}, fast policy, "
+          f"{PAR_STEPS} steps, global-batch BN, dropout on): losses "
+          f"{[f'{v:.6f}' for v in fus['losses']]} vs one process "
+          f"{[f'{v:.6f}' for v in fus['ref_losses']]}; parameters and BN "
+          f"statistics max_abs_err {fus['err']['max_abs']:.3e} (worst "
+          f"{fus['err']['worst']}, {PAR_TOL}); warp launches a rank {warps}")
+    _want_launches("18a", warps, PAR_PROGRAMS["steps"])
+    out["fusion_img_s"] = (fus["img_s"], fus["ref_img_s"])
+    print(f"18a clocks (host, steps 2-{PAR_STEPS}, a device sync at each "
+          f"end): 2 ranks on the one card {fus['img_s']:.1f} img/s; one "
+          f"process {fus['ref_img_s']:.1f} img/s")
+    for key, label, want in (
+            ("mae", "18c MAE DP step (ConvViT-Base f32, mask 0.75, B9/B10, "
+             "SGD)", {"fused_ln_mlp": 4, "fused_ln_mlp_backward": 4}),
+            ("tp", "18d MAE TP step (blocks split over 2 ranks: 6 of 12 "
+             "encoder heads, 8 of 16 decoder heads a rank)",
+             {"flash_attention": 19, "fused_ln_mlp": 4})):
+        r = res[0][key]
+        _held(label, r)
+        got = [{k: x[key]["launches"][k] for k in want} for x in res]
+        print(f"{label}: loss {r['loss']:.6f} vs one process "
+              f"{r['ref_loss']:.6f}; max_abs_err {r['err']['max_abs']:.3e} "
+              f"({PAR_TOL}); step {r['seconds'] * 1e3:.1f} ms vs one "
+              f"process {r['ref_seconds'] * 1e3:.1f} ms (host clock, "
+              f"first step); launches a rank {got}")
+        _want_launches(label, got, want)
+        out[key] = (r["seconds"], r["ref_seconds"])
+
+    # 18b, 18c's CLI, 18e, 18f: the CLIs in 2 processes
+    par = root / "par"
+    shutil.rmtree(par, ignore_errors=True)
+    par.mkdir(parents=True)
+    main_cfg = json.loads(json.dumps(config))
+    main_cfg.update(model_path=str(par / "models"), log_dir=str(par / "runs"))
+    main_cfg["training_plan"]["parameters"].update(epochs=1)
+    mae_cfg = json.loads(json.dumps(config))
+    mae_cfg.update(model_path=str(par / "mae_models"),
+                   log_dir=str(par / "mae_runs"))
+    mae_cfg["training_plan"]["parameters"].update(
+        epochs=1, batch_size=VAL_BATCH, model_size=PAR_MAE_SIZE,
+        norm_pix_loss=True,
+        masking_ratio=MASK_RATIO, eval_masking_ratio=MASK_RATIO,
+        include_lesion_mask=False, use_flash_attention=True,
+        device_cache=False)
+    rad_cfg = json.loads(json.dumps(config))
+    rad_cfg["dir"].update(radiomics=str(par / "rad.pkl"),
+                          radiomics_test=str(par / "rad_test.pkl"))
+    hpo_cfg = {"seed": SEED, "device": config["device"], "num_classes": 7}
+    paths = {k: str(_write_yaml(par, k, c)) for k, c in (
+        ("main", main_cfg), ("mae", mae_cfg), ("rad", rad_cfg),
+        ("hpo", hpo_cfg))}
+    res, wall = run_group(PAR_RANKS, "chip_smoke:rank_clis",
+                          {"paths": paths, "hpo_dir": str(par / "hpo"),
+                           "frame_path": str(frame_path),
+                           "device": device.type}, "18b/c/e/f")
+    out["clis_wall"] = wall
+    out["cli_walls"] = {k: [r[k]["wall"] for r in res] for k in res[0]}
+
+    # 18b: cli.main
+    m0 = res[0]["main"]
+    events = read_metrics(m0["run_dir"])
+    losses = [e["value"] for e in events if e["name"].endswith("epoch_loss")]
+    runs = os.listdir(par / "runs")
+    df_test = pd.read_pickle(config["dir"]["df_test"])
+    n_test = len(df_test)
+    logits = np.load(f"{paths['main']}.logits0.npy")
+    same = np.array_equal(logits, np.load(f"{paths['main']}.logits1.npy"))
+    df = pd.read_pickle(config["dir"]["df"])
+    fold = list(StratifiedKFold(n_splits=10, shuffle=True,
+                                random_state=SEED).split(df, df["dx"]))[1]
+    forwards = -(-n_test // GLOBAL_BS)  # a rank's test forwards of 8 rows
+    want = {"dw_silu_pool": 2 * forwards, "expand_dw_silu_pool": 20 * forwards,
+            "affine_warp_batch": len(fold[0]) // GLOBAL_BS}
+    got = [{k: r["main"]["launches"][k] for k in want} for r in res]
+    rad_red = config["dir"].get("radiomics_test_red")
+    rad_test = (pd.read_pickle(rad_red).values
+                if rad_red and os.path.exists(rad_red) else None)
+    records = DermRecords(df_test, radiomics=rad_test)
+    plan = config["training_plan"]
+    model = _empty_model(device, modality=plan["modality"],
+                         fusion_level=plan["fusion_level"],
+                         fusion_strategy=plan["fusion"],
+                         radiomics_dim=records.radiomics_dim,
+                         backbone=plan["parameters"]["backbone"],
+                         backbone_bn_folded=True,
+                         backbone_pallas_serving=True)
+    model.load_state_dict(fold_fusion_params(checkpoint.restore_checkpoint(
+        m0["model_path"], device=device),
+        backbone=plan["parameters"]["backbone"]))
+    step = T.make_fusion_eval_step(model)
+    one = torch.cat([step(b)[1] for b in DeviceLoader(
+        records, GLOBAL_BS, transform=augment.POLICIES["fusion_eval"],
+        device=device)]).float().cpu().numpy()
+    err = float(np.abs(logits - one).max())
+    print(f"18b cli.main in 2 processes (B3@380 f32, 1 epoch, streaming "
+          f"loader, fold_bn_eval): {len(runs)} run record, losses "
+          f"{[f'{v:.4f}' for v in losses]}; test logits {logits.shape} "
+          f"({n_test} true rows; the ranks' copies equal: {same}); the "
+          f"checkpoint restored in one process: max_abs_err {err:.3e} "
+          f"({RANK_LOGIT_TOL}); launches a rank {got} ({forwards} test "
+          f"forwards and {want['affine_warp_batch']} train steps a rank); wall {out['cli_walls']['main']} s")
+    if len(runs) != 1 or not losses or not all(map(math.isfinite, losses)) \
+            or logits.shape != (n_test, 7) or not same:
+        raise AssertionError("18b cli.main in 2 processes")
+    _want_launches("18b", got, want)
+    np.testing.assert_allclose(logits, one, **RANK_LOGIT_TOL)
+
+    # 18c: cli.train_ae, its val_n_true loss against one process
+    a0 = res[0]["train_ae"]
+    if res[1]["train_ae"]["model_path"] is not None or \
+            len(os.listdir(par / "mae_runs")) != 1:
+        raise AssertionError("18c: rank 1 wrote a checkpoint or a record")
+    val_records = DermRecords(df.iloc[fold[1]])
+    from multimodal_isic_tpu_torch.cli import train_ae as TA
+    with torch.device("meta"):
+        mae = ConvMAE(**TA.model_config(
+            mae_cfg["training_plan"]["parameters"], device))
+    mae.to_empty(device=device)
+    mae.load_state_dict(checkpoint.restore_checkpoint(a0["model_path"],
+                                                      device=device))
+    n_val = len(val_records)
+    gen = RngPool(SEED, device)["eval"].at(0)
+    ps = make_mae_eval_persample_step(mae, MASK_RATIO)
+    per = torch.cat([ps(b["image"], gen) for b in DeviceLoader(
+        val_records, TA.VAL_BS, order=np.resize(np.arange(n_val), TA.VAL_BS),
+        transform=augment.POLICIES["mae_eval"], device=device)])[:n_val]
+    want_val = float(per.double().mean())
+    alaunch = [{k: r["train_ae"]["launches"][k] for k in (
+        "fused_ln_mlp", "fused_ln_mlp_backward", "flash_attention")}
+        for r in res]
+    print(f"18c cli.train_ae in 2 processes (ConvViT-Base f32, global bs "
+          f"{VAL_BATCH}, 1 epoch): history {a0['history']}; val_n_true loss "
+          f"{a0['val']:.6f} vs one process on the saved weights "
+          f"{want_val:.6f} (rtol {PAR_VAL_RTOL}); launches a rank "
+          f"{alaunch}; wall {out['cli_walls']['train_ae']} s")
+    if not math.isclose(a0["val"], want_val, rel_tol=PAR_VAL_RTOL) or \
+            res[1]["train_ae"]["val"] != a0["val"]:
+        raise AssertionError("18c val_n_true loss")
+
+    # 18e: cli.extract_radiomics
+    two = (pd.read_pickle(par / "rad.pkl"), pd.read_pickle(par / "rad_test.pkl"))
+    chunks = [-(-len(f) // 16) for f in two]
+    mine = [sum(len(range(r, c, PAR_RANKS)) for c in chunks)
+            for r in range(PAR_RANKS)]
+    rlaunch = [{k: r["extract_radiomics"]["launches"][k] for k in RAD_KERNELS}
+               for r in res]
+    worst = 0.0
+    for got_f, want_f in zip(two, rad_frames):
+        if list(got_f.columns) != list(want_f.columns) or \
+                got_f.shape != want_f.shape:
+            raise AssertionError("18e frame columns or shape")
+        g, w = got_f.values, want_f.values
+        if not np.array_equal(np.isnan(g), np.isnan(w)):
+            raise AssertionError("18e NaNs at other places")
+        ok = ~np.isnan(w)
+        bad = np.abs(g[ok] - w[ok]) > RAD_TOL["atol"] + RAD_TOL["rtol"] * \
+            np.abs(w[ok])
+        worst = max(worst, float(np.abs(g[ok] - w[ok]).max()))
+        if bad.any():
+            raise AssertionError(f"18e {int(bad.sum())} values outside "
+                                 f"{RAD_TOL}")
+    print(f"18e cli.extract_radiomics in 2 processes: frames "
+          f"{[f.shape for f in two]} in the one-process row order, against "
+          f"phase 14's: max_abs_err {worst:.3e} ({RAD_TOL}); chunks a rank "
+          f"{mine}, launches a rank {rlaunch}; wall "
+          f"{out['cli_walls']['extract_radiomics']} s")
+    for r, m in enumerate(mine):
+        _want_launches(f"18e rank {r}", [rlaunch[r]],
+                       {k: 13 * m for k in RAD_KERNELS})
+
+    # 18f: cli.tune_mil
+    tables = [pd.read_csv(f"{par / 'hpo'}{r}.csv") for r in range(PAR_RANKS)]
+    arts = sorted(p.name.split("_")[0] for p in (par / "hpo0").iterdir())
+    if not tables[0].equals(tables[1]) or len(tables[0]) != 8 or \
+            tables[0]["trial_id"].nunique() != 8 or \
+            not np.isfinite(tables[0]["val_bacc"]).all() or \
+            arts != ["best", "hpo"] or (par / "hpo1").exists():
+        raise AssertionError("18f cli.tune_mil in 2 processes")
+    tl = [r["tune_mil"]["launches"] for r in res]
+    _want_launches("18f", tl, {k: 0 for k in tl[0]})
+    print(f"18f cli.tune_mil in 2 processes (mil, 8 samples × 2 epochs, "
+          f"cohorts of 4: one a rank): one table of 8 trials on both ranks, "
+          f"val_bacc max {tables[0]['val_bacc'].max():.4f}; artifacts on "
+          f"rank 0 only; no kernel launch; wall "
+          f"{out['cli_walls']['tune_mil']} s")
+    out["launches"] = {
+        "affine_warp_batch": warps[0],
+        "dw_silu_pool": got[0]["dw_silu_pool"],
+        "expand_dw_silu_pool": got[0]["expand_dw_silu_pool"],
+        **rlaunch[0], "fused_ln_mlp": res[0]["train_ae"]["launches"][
+            "fused_ln_mlp"],
+        "fused_ln_mlp_backward": res[0]["train_ae"]["launches"][
+            "fused_ln_mlp_backward"],
+        "flash_attention": res[0]["train_ae"]["launches"]["flash_attention"]}
+    return out
+
+
 def _write_yaml(root: Path, name: str, config: dict) -> Path:
     import yaml
     path = root / f"{name}.yml"
@@ -5051,6 +5468,21 @@ def main() -> int:
           f"{clu['ref']['kmeans_s']:.1f} s, layout "
           f"{clu['ref']['layout_s']:.1f} s; wall "
           f"{time.perf_counter() - t_start:.1f} s")
+
+    # 18. the parallel layer in 2 processes on the card: the data- and
+    # tensor-parallel programs against one process, then cli.main,
+    # cli.train_ae, cli.extract_radiomics and cli.tune_mil under ISIC_*
+    import pandas as pd
+    t18 = time.perf_counter()
+    d = cli["config"]["dir"]
+    par = parallel_chain(
+        device, cli["root"], cli["config"],
+        (pd.read_pickle(d["radiomics"]), pd.read_pickle(d["radiomics_test"])),
+        cli["root"] / "dataframes_latents" / "patch_level_latents_train_df.pkl")
+    print(f"phase 18 (2 processes) {time.perf_counter() - t18:.1f} s: "
+          f"programs group {par['programs_wall']:.1f} s, CLIs group "
+          f"{par['clis_wall']:.1f} s; launches in phase 18 (rank 0) "
+          f"{par['launches']}; wall {time.perf_counter() - t_start:.1f} s")
 
     med, bound, b_bytes, b_ops = warp_times[BATCH]
     totals["affine_warp_batch"] = [med["kernel"], med["plain"], bound, b_bytes,

@@ -30,8 +30,13 @@ otherwise with cv2 image by image under ``extract_radiomics``'s own rule, so
 its pixels are the per-image path's (the JAX package extracts image by image
 without the native decoder; the port keeps chunks on the card either way).
 The decoder is a host choice: it changes neither the device nor a kernel.
-Mesh-sharded extraction waits for the parallel port.  cv2 and pandas are
-imported where they are used.
+
+Several processes (JAX :86-97 shards a chunk's maps over the mesh's
+``data`` axis): one card a process, so the chunks are dealt round-robin to
+the data ranks of ``grid`` (``parallel.sharding.Grid``), each rank extracts
+its chunks on its card, and the chunks' features are gathered to every
+rank in the one-process row order.  cv2 and pandas are imported where they
+are used.
 """
 
 from __future__ import annotations
@@ -107,13 +112,14 @@ class RadiomicsExtractor:
 
     def __init__(self, bin_width: float = 10.0, label: int = 255,
                  glrlm_max_len: int = 640, batch: int = 16,
-                 use_kernels: bool = True, device="cuda"):
+                 use_kernels: bool = True, device="cuda", grid=None):
         self.bin_width = float(bin_width)
         self.label = label
         self.glrlm_max_len = glrlm_max_len
         self.batch = batch
         self.use_kernels = use_kernels
         self.device = torch.device(device)
+        self.grid = grid  # several processes: the chunks split over data
         # canonical names from a tiny bundle on the CPU (sorted keys)
         z = torch.zeros((1, 8, 8))
         sample = texture_bundle(z, torch.zeros((1, 8, 8), dtype=torch.uint8),
@@ -244,7 +250,9 @@ class RadiomicsExtractor:
         padded with its own last record (one shape a chunk), the next chunk
         decoding on a host thread while the card works on this one (JAX
         :258-289).  ``native=None`` takes the native decoder where it
-        loads."""
+        loads.  With a grid of several data ranks a rank extracts chunks
+        ``data_rank``, ``data_rank + n_data``, … and every rank gets all
+        the chunks' features, in order."""
         from concurrent.futures import ThreadPoolExecutor
 
         from ..data import native_io
@@ -255,20 +263,32 @@ class RadiomicsExtractor:
         bsz = int(self.batch)
         chunks = [list(records[i:i + bsz])
                   for i in range(0, len(records), bsz)]
+        grid = self.grid
+        world, rank = (grid.n_data, grid.data_rank) if grid else (1, 0)
+        mine = list(range(rank, len(chunks), world))
 
-        def decode(chunk):
+        def decode(ci):
+            chunk = chunks[ci]
             padded = chunk + [chunk[-1]] * (bsz - len(chunk))
             return self._decode_chunk(padded, hw, native)
 
-        results: List[Dict] = []
+        done = {}
         with ThreadPoolExecutor(1) as ex:
-            fut = ex.submit(decode, chunks[0])
-            for ci, chunk in enumerate(chunks):
+            fut = ex.submit(decode, mine[0]) if mine else None
+            for k, ci in enumerate(mine):
                 rgb, masks = fut.result()
-                if ci + 1 < len(chunks):
-                    fut = ex.submit(decode, chunks[ci + 1])
-                results.extend(
-                    self.extract_channels_batch(rgb, masks)[:len(chunk)])
+                if k + 1 < len(mine):
+                    fut = ex.submit(decode, mine[k + 1])
+                stacked, shape = self._extract(rgb, masks)
+                n = len(chunks[ci])
+                done[ci] = (stacked[:, :n], shape[:, :n])
+        if world > 1:
+            from ..parallel.distributed import all_gather_object
+            for part in all_gather_object(done, grid.data_group):
+                done.update(part)
+        results: List[Dict] = []
+        for ci in range(len(chunks)):
+            results.extend(self._assemble(*done[ci]))
         return results
 
     def parallell_extraction(self, list_of_dicts: Sequence[Dict],
@@ -333,7 +353,8 @@ def extract_radiomics_frames(config, df_train, df_test,
     """The ``extract_radiomics.py`` workload (JAX :328-343): both manifests
     extracted and their suffixed frames (the JAX ``features_to_frame``,
     ``extract_radiomics.py:54-71``) pickled to ``dir.radiomics[_test]`` →
-    (train frame, test frame)."""
+    (train frame, test frame).  With the extractor's grid every rank gets
+    the frames and rank 0 alone writes them."""
     import pandas as pd  # local: host-only dependency
 
     extractor = extractor or RadiomicsExtractor()
@@ -345,8 +366,10 @@ def extract_radiomics_frames(config, df_train, df_test,
 
     train, test = frame(df_train), frame(df_test)
     d = config["dir"]
-    if d.get("radiomics"):
-        train.to_pickle(d["radiomics"])
-    if d.get("radiomics_test"):
-        test.to_pickle(d["radiomics_test"])
+    grid = extractor.grid
+    if grid is None or grid.rank == 0:  # several processes: rank 0 writes
+        if d.get("radiomics"):
+            train.to_pickle(d["radiomics"])
+        if d.get("radiomics_test"):
+            test.to_pickle(d["radiomics_test"])
     return train, test

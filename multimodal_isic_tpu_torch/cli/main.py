@@ -19,7 +19,15 @@ that checkpoint → the test report.
 - ``fold_bn_eval`` runs the final test pass on the BN-folded net with the
   fused MBConv kernels (``backbone_pallas_serving``), the faster path on the
   H100 (``PERF.md`` §5).
-- Multi-process runs wait for the parallel port: they raise ``ValueError``.
+- Several processes (``ISIC_*``, ``cli.common.setup_processes``; JAX
+  :50-57,95-105,149,172-184,204,212-250): every rank loads its rows of each
+  global batch of 16 through the streaming loader (no ``device_cache``),
+  the train step is the data-parallel one (global-batch BatchNorm, the
+  draws of the global batch, gradients averaged over the ranks), the
+  validation and test loaders wrap-pad to full global batches and the
+  gathered results are trimmed to the true rows; rank 0 alone logs,
+  writes the run record and saves the checkpoint (its name broadcast),
+  which every rank restores for the test pass.
 
 ``main`` returns the run's results: the checkpoint path, the run directory,
 the fold's indices, the test accuracy, report and logits.
@@ -41,13 +49,15 @@ from ..core.splits import StratifiedKFold
 from ..data import augment
 from ..data.pipeline import DermRecords, DeviceDataset, DeviceLoader
 from ..models.fusion import MultiModalFusionNet, fold_fusion_params
+from ..parallel import distributed as dist
+from ..parallel.sharding import replicate_, shard_transform
 from ..train.fusion import (build_fusion, evaluate_test, fusion_optimizer,
                             log_train_epoch, make_fusion_eval_epoch,
                             make_fusion_eval_step, make_fusion_train_epoch,
                             make_fusion_train_step, padded_epoch_order,
                             train_epoch, validate_epoch)
 from ..utils.logging import RunLogger
-from .common import check_single_process, parse_config, resolve_device
+from .common import parse_config, setup_processes
 
 # eval-side image size of the device-resident validation epoch (the
 # policies bake 380² in; tests patch this beside their small policies)
@@ -65,15 +75,18 @@ def _empty_model(device: torch.device, **cfg) -> MultiModalFusionNet:
 
 def main(argv=None) -> Dict[str, Any]:
     config = parse_config(argv)
-    check_single_process(config)
-    logger = RunLogger(config.get("log_dir", "runs"), config=config.to_dict())
+    _, grid, device = setup_processes(config)
+    # one run record a job, not a process: the other ranks stay silent
+    logger = (RunLogger(config.get("log_dir", "runs"), config=config.to_dict())
+              if dist.is_coordinator() else None)
     try:
-        return _run(config, resolve_device(config["device"]), logger)
+        return _run(config, device, logger, grid)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
-def _run(config, device: torch.device, logger: RunLogger) -> Dict[str, Any]:
+def _run(config, device: torch.device, logger, grid=None) -> Dict[str, Any]:
     import pandas as pd  # local: host-only dependency
 
     plan = config["training_plan"]
@@ -116,31 +129,46 @@ def _run(config, device: torch.device, logger: RunLogger) -> Dict[str, Any]:
     train_records = records(df_train, radiomics, train_idx)
     val_records = records(df_val, radiomics, val_idx)
     print(f"decoder: {'native' if train_records.use_native else 'cv2'}")
-    val_loader = DeviceLoader(val_records, GLOBAL_BS, transform=eval_tf,
-                              device=device)
-    test_loader = DeviceLoader(records(df_test, radiomics_test), GLOBAL_BS,
-                               transform=eval_tf, device=device)
+
+    def eval_loader(recs):
+        """→ (loader, n_true): several processes wrap the order to full
+        global batches (the gathered results are trimmed to n_true)."""
+        if grid is None:
+            return DeviceLoader(recs, GLOBAL_BS, transform=eval_tf,
+                                device=device), None
+        order, per_bs, n_true = dist.process_epoch_order(
+            np.arange(len(recs)), GLOBAL_BS, pad_to_full=True)
+        return DeviceLoader(recs, per_bs, order=order, transform=eval_tf,
+                            device=device), n_true
+
+    val_loader, val_n = eval_loader(val_records)
+    test_loader, test_n = eval_loader(records(df_test, radiomics_test))
 
     model_cfg = dict(modality=plan["modality"],
                      fusion_level=plan["fusion_level"],
                      fusion_strategy=plan["fusion"],
                      radiomics_dim=train_records.radiomics_dim,
                      backbone=params_cfg["backbone"])
-    logger.assign("group_tags", list(plan["modality"]) + [plan["fusion"]])
-    logger.assign("train/current_fold", current_fold)
+    if logger is not None:
+        logger.assign("group_tags",
+                      list(plan["modality"]) + [plan["fusion"]])
+        logger.assign("train/current_fold", current_fold)
 
     model = build_fusion(pool["init"].next(), **model_cfg,
                          backbone_remat=params_cfg["backbone_remat"])
+    replicate_(model)  # every rank starts from rank 0's weights
     optimizer = fusion_optimizer(model, lr=1e-3, weight_decay=1e-4)
-    train_step = make_fusion_train_step(model, optimizer)
+    train_step = make_fusion_train_step(model, optimizer, grid)
     eval_step = make_fusion_eval_step(model)
     early_stopping = EarlyStopping(patience=params_cfg["patience"],
-                                   log=logger.log)
+                                   log=logger.log if logger else None)
+    train_tf = shard_transform(train_tf, grid)
 
     # device_cache: stage the train and validation crops on the card once,
-    # then run every epoch as device work (gather → augment → step)
+    # then run every epoch as device work (gather → augment → step); several
+    # processes keep the streaming loader (a rank loads its rows)
     train_device = val_device = None
-    if params_cfg["device_cache"] and with_image:
+    if params_cfg["device_cache"] and with_image and grid is None:
         # the fast policy never reads masks: none are staged for it
         train_device = DeviceDataset.from_records(
             train_records, device=device,
@@ -157,6 +185,9 @@ def _run(config, device: torch.device, logger: RunLogger) -> Dict[str, Any]:
 
     for epoch in range(1, params_cfg["epochs"] + 1):
         order = np.random.RandomState(seed + epoch).permutation(len(df_train))
+        batch_size = GLOBAL_BS
+        if grid is not None:  # one permutation; each rank its rows
+            order, batch_size, _ = dist.process_epoch_order(order, GLOBAL_BS)
         if train_device is not None:
             step_idx = train_device.epoch_order(GLOBAL_BS, order=order)
             loss, ncorr = fused_epoch(train_device.images, train_device.masks,
@@ -166,7 +197,7 @@ def _run(config, device: torch.device, logger: RunLogger) -> Dict[str, Any]:
             log_train_epoch(logger, model, epoch, loss, ncorr / step_idx.size)
         else:
             train_loader = DeviceLoader(
-                train_records, GLOBAL_BS, order=order, transform=train_tf,
+                train_records, batch_size, order=order, transform=train_tf,
                 rng_stream=pool["augment"] if with_image else None,
                 device=device)
             train_epoch(train_step, model, train_loader, pool["dropout"],
@@ -181,16 +212,21 @@ def _run(config, device: torch.device, logger: RunLogger) -> Dict[str, Any]:
                          f"Accuracy: {val_acc:.4f}")
         else:
             val_loss = validate_epoch(eval_step, val_loader, logger=logger,
-                                      epoch=epoch)
+                                      epoch=epoch, n_true=val_n,
+                                      group_size=GLOBAL_BS)
         if early_stopping(val_loss, model.state_dict()):
             print(f"Early stopping at epoch {epoch}")
             break
 
     best = early_stopping.get_best_params() or model.state_dict()
-    model_name = os.path.join(config["model_path"], uuid.uuid4().hex)
-    os.makedirs(config["model_path"], exist_ok=True)
-    ckpt.save_checkpoint(model_name, best)
-    logger.assign("best_model_path", model_name)
+    # every rank restores the same path: rank 0's name, rank 0's file
+    model_name = os.path.join(config["model_path"],
+                              dist.broadcast_object(uuid.uuid4().hex))
+    if dist.is_coordinator():
+        os.makedirs(config["model_path"], exist_ok=True)
+        ckpt.save_checkpoint(model_name, best)
+        logger.assign("best_model_path", model_name)
+    dist.barrier()
 
     restored = ckpt.restore_checkpoint(model_name, device=device)
     if params_cfg["fold_bn_eval"] and with_image:
@@ -209,13 +245,16 @@ def _run(config, device: torch.device, logger: RunLogger) -> Dict[str, Any]:
 
     def keep_logits(batch):
         loss, out = test_step(batch)
-        logits.append(out)
+        logits.append(dist.gather_to_host(out.float()))
         return loss, out
 
-    acc, report = evaluate_test(keep_logits, test_loader, logger=logger)
-    return {"model_path": model_name, "run_dir": logger.dir,
+    acc, report = evaluate_test(keep_logits, test_loader, logger=logger,
+                                n_true=test_n)
+    return {"model_path": model_name,
+            "run_dir": logger.dir if logger is not None else None,
             "train_idx": train_idx, "val_idx": val_idx, "accuracy": acc,
-            "report": report, "logits": torch.cat(logits).cpu()}
+            "report": report,
+            "logits": torch.from_numpy(np.concatenate(logits)[:test_n])}
 
 
 if __name__ == "__main__":

@@ -21,7 +21,16 @@ in the run's artifacts.
   JAX CLI turns it on where the backend is ``tpu``) and the dims allow it;
   ``use_flash_attention`` and ``remat_blocks`` come from the config; the
   fused front stays off, as the JAX CLIs leave it.
-- Multi-process runs wait for the parallel port: they raise ``ValueError``.
+- Several processes (``ISIC_*``, ``cli.common.setup_processes``; JAX
+  :39-42,73-86,114,144,178,220,235): every rank loads its rows of each
+  global batch of ``batch_size`` from the same weighted order (no
+  ``device_cache``), the train step is the data-parallel one (the masks
+  and augmentations of the global batch, gradients averaged over the
+  ranks), the validation loader wrap-pads to full global batches of 64 and
+  its per-sample losses are gathered and trimmed (``val_n_true``); rank 0
+  alone logs, keeps ``mae_ckpt/``, runs the diagnostics hook on its own
+  (a loader of the whole validation split, no collective) and saves the
+  best weights.
 
 ``main`` returns the run's results: the best checkpoint's path, the run
 directory, the history and the best validation loss.
@@ -43,12 +52,14 @@ from ..core.splits import StratifiedKFold, weighted_sample_indices
 from ..data import augment
 from ..data.pipeline import DermRecords, DeviceDataset, DeviceLoader
 from ..models.convmae import ConvMAE, build_convmae, load_pretrained
+from ..parallel import distributed as dist
+from ..parallel.sharding import replicate_, shard_transform
 from ..train.fusion import eval_mode
 from ..train.mae import (make_encoder_step, make_mae_eval_epoch,
                          make_mae_eval_step, make_mae_train_epoch,
                          mae_optimizer, train_mae)
 from ..utils.logging import RunLogger
-from .common import check_single_process, parse_config, resolve_device
+from .common import parse_config, setup_processes
 
 VAL_BS = 64  # validation and diagnostics batch (JAX cli/train_ae.py:81-89)
 HOOK_EVERY = 10  # epochs between diagnostics (train_ae.py:176)
@@ -90,15 +101,18 @@ def init_pretrained(model: ConvMAE, pretrained: str) -> None:
 
 def main(argv=None) -> Dict[str, Any]:
     config = parse_config(argv)
-    check_single_process(config)
-    logger = RunLogger(config.get("log_dir", "runs"), config=config.to_dict())
+    _, grid, device = setup_processes(config)
+    # one run record a job, not a process: the other ranks stay silent
+    logger = (RunLogger(config.get("log_dir", "runs"), config=config.to_dict())
+              if dist.is_coordinator() else None)
     try:
-        return _run(config, resolve_device(config["device"]), logger)
+        return _run(config, device, logger, grid)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
-def _run(config, device: torch.device, logger: RunLogger) -> Dict[str, Any]:
+def _run(config, device: torch.device, logger, grid=None) -> Dict[str, Any]:
     import pandas as pd  # local: host-only dependency
 
     params_cfg = config["training_plan"]["parameters"]
@@ -129,15 +143,30 @@ def _run(config, device: torch.device, logger: RunLogger) -> Dict[str, Any]:
     lesion = params_cfg["include_lesion_mask"]
     print(f"decoder: {'native' if train_records.use_native else 'cv2'}")
 
+    train_tf = shard_transform(augment.POLICIES["mae_train"], grid)
+
     def train_batches(epoch):
         order = weighted_sample_indices(labels, None, sampler_rng)
-        return DeviceLoader(train_records, batch_size, order=order,
-                            transform=augment.POLICIES["mae_train"],
-                            rng_stream=pool["augment"], drop_last=True,
-                            device=device)
+        bs = batch_size
+        if grid is not None:  # one weighted order; each rank its rows
+            order, bs, _ = dist.process_epoch_order(order, batch_size)
+        return DeviceLoader(train_records, bs, order=order,
+                            transform=train_tf, rng_stream=pool["augment"],
+                            drop_last=True, device=device)
 
     def val_batches():
+        """The whole validation split at ``VAL_BS`` (one process; the
+        hook's loader on rank 0)."""
         return DeviceLoader(val_records, VAL_BS,
+                            transform=augment.POLICIES["mae_eval"],
+                            device=device)
+
+    def rank_val_batches():
+        """A rank's rows of the validation split wrap-padded to full
+        global batches of ``VAL_BS``."""
+        order, bs, _ = dist.process_epoch_order(
+            np.arange(len(val_records)), VAL_BS, pad_to_full=True)
+        return DeviceLoader(val_records, bs, order=order,
                             transform=augment.POLICIES["mae_eval"],
                             device=device)
 
@@ -145,6 +174,7 @@ def _run(config, device: torch.device, logger: RunLogger) -> Dict[str, Any]:
                           **model_config(params_cfg, device))
     if params_cfg.get("pretrained_ckpt", ""):
         init_pretrained(model, params_cfg["pretrained_ckpt"])
+    replicate_(model)  # every rank starts from rank 0's weights
     model.train()
     optimizer = mae_optimizer(model)
     encoder_step = make_encoder_step(model)
@@ -182,7 +212,10 @@ def _run(config, device: torch.device, logger: RunLogger) -> Dict[str, Any]:
 
     loops: Dict[str, Any] = {"train_batches": train_batches,
                              "val_batches": val_batches}
-    if params_cfg["device_cache"]:
+    if grid is not None:
+        loops.update(val_batches=rank_val_batches, grid=grid,
+                     val_n_true=len(val_records))
+    elif params_cfg["device_cache"]:
         # stage both splits on the card once: every epoch is device work
         train_dset = DeviceDataset.from_records(train_records, device=device)
         val_dset = DeviceDataset.from_records(val_records, device=device)
@@ -215,19 +248,26 @@ def _run(config, device: torch.device, logger: RunLogger) -> Dict[str, Any]:
 
         loops = {"fused_train": fused_train, "fused_val": fused_val}
 
+    coord = logger is not None  # the checkpoints and the hook: rank 0
     result = train_mae(
         model, optimizer, num_epochs=epochs, rng=pool, logger=logger,
-        checkpoint_dir=os.path.join(config["model_path"], "mae_ckpt"),
+        checkpoint_dir=(os.path.join(config["model_path"], "mae_ckpt")
+                        if coord else None),
         mask_ratio=mask_ratio, eval_mask_ratio=eval_ratio,
-        use_lesion_mask=lesion, epoch_hook=epoch_hook, **loops)
+        use_lesion_mask=lesion, epoch_hook=epoch_hook if coord else None,
+        **loops)
 
-    os.makedirs(config["model_path"], exist_ok=True)
-    model_path = os.path.join(config["model_path"], uuid.uuid4().hex)
-    ckpt.save_checkpoint(model_path, result["best_state"],
-                         metadata={"val_loss": result["best_val_loss"]})
-    logger.assign("best_model_path", model_path)
-    logger.print(f"Saved Best Model at {model_path}")
-    return {"model_path": model_path, "run_dir": logger.dir,
+    model_path = None
+    if coord:
+        os.makedirs(config["model_path"], exist_ok=True)
+        model_path = os.path.join(config["model_path"], uuid.uuid4().hex)
+        ckpt.save_checkpoint(model_path, result["best_state"],
+                             metadata={"val_loss": result["best_val_loss"]})
+        logger.assign("best_model_path", model_path)
+        logger.print(f"Saved Best Model at {model_path}")
+    dist.barrier()
+    return {"model_path": model_path,
+            "run_dir": logger.dir if coord else None,
             "train_idx": train_idx, "val_idx": val_idx,
             "history": result["history"],
             "best_val_loss": result["best_val_loss"],

@@ -15,7 +15,12 @@ cohort) and lr / wd / gnn_dropout / pool_dropout a trial's; each bag's
 adjacency is built once and shared by the cohort.  ``--packed never`` runs
 the sequential runner.  Training runs on the config's ``device``
 (``cli.common.resolve_device``: the card unless it says ``cpu``), in full
-float32 (TF32 off); one process on one card.
+float32 (TF32 off).  In several processes (``ISIC_*``,
+``cli.common.setup_processes``; JAX :60-61,99-100) each rank runs a
+round-robin slice of the trials on its own card, the ASHA rungs, the
+failure budget and the results table are shared through the group's store
+(``hpo.distributed``), every rank gets the same table and best config, and
+rank 0 alone writes the artifacts.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from ..hpo import distributed as hdist
 from ..hpo.population import (GRAPH_POP_KEYS, GRAPH_SHAPE_KEYS, POP_KEYS,
                               SHAPE_KEYS, run_population_search)
 from ..train.mil import train_graph_mil, train_mil
-from .common import check_single_process, parse_config, resolve_device
+from .common import parse_config, setup_processes
 
 
 def main(argv=None):
@@ -57,8 +62,7 @@ def main(argv=None):
     parser.add_argument("--cohort_size", type=int, default=8)
     args, rest = parser.parse_known_args(argv)
     config = parse_config(rest)
-    check_single_process(config)
-    device = resolve_device(config["device"])
+    _, _, device = setup_processes(config)
 
     patch_df = pd.read_pickle(args.patch_df)
     bags, labels, _ = build_patient_bags(patch_df)

@@ -10,7 +10,8 @@ Keys whose meaning is the JAX runtime's read differently here:
 
 - ``device``: ``''``, ``'tpu'`` and ``'cuda'`` mean ``cuda:0``,
   ``'cuda:N'`` that card, ``'cpu'`` the CPU (``cli/common.py``).
-- ``mesh``: accepted; one card until the parallel port.
+- ``mesh``: ``data`` and ``model`` lay out the processes' ranks, one card
+  a process (``cli.common.setup_processes``).
 - ``use_fused_mlp`` / ``use_flash_attention`` name the port's CUDA kernels.
 """
 
@@ -105,7 +106,7 @@ class TrainingPlan(_DictAccess):
 
 @dataclass(frozen=True)
 class MeshConfig(_DictAccess):
-    """Device mesh; one card until the parallel port."""
+    """The ranks' grid: ``data`` -1 is every process (one card each)."""
 
     data: int = -1
     model: int = 1

@@ -8,7 +8,9 @@ here hands out a fresh generator seeded from (root seed, name hash, index).
 The generators live on the stream's device (the card unless the caller
 asks for the CPU), so draws on the card need no host round trip.  The
 numbers are not JAX's: ``jax.random`` and ``torch.Generator`` differ from
-one seed.
+one seed.  Under data parallelism a :class:`ShardedGenerator` makes a
+rank's batch draws (:func:`batch_rand`, :func:`batch_draws`) the rows of
+the global batch's.
 """
 
 from __future__ import annotations
@@ -100,3 +102,76 @@ class RngPool:
                              f"a pool of seed {self.seed}")
         for name, counter in dict(state["counters"]).items():
             self.stream(name)._counter = int(counter)
+
+
+class ShardedGenerator:
+    """A generator whose batch draws are those of the global batch.
+
+    Under data parallelism each rank holds ``rows`` of a global batch of
+    ``world · rows`` samples, and every rank's streams give the same
+    generators (one seed).  A draw through :func:`batch_rand` or
+    :func:`batch_draws` is made at the global batch's shape and the rank's
+    rows ``[rank · rows, (rank + 1) · rows)`` are kept, so the ranks
+    together draw exactly what one process draws for the global batch: the
+    counterpart of ``jax.random`` drawing at a global array's shape
+    (dropout, drop-connect, the augmentations' parameters and the MAE
+    masks).  With ``world`` 1 the draws are the generator's own."""
+
+    def __init__(self, generator: torch.Generator, world: int, rank: int):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a world of {world}")
+        self.generator, self.world, self.rank = generator, int(world), int(rank)
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+    def get_state(self) -> torch.Tensor:
+        return self.generator.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.generator.set_state(state)
+
+    def rows(self, n: int) -> slice:
+        """The rank's rows of a global batch of ``world · n``."""
+        return slice(self.rank * n, (self.rank + 1) * n)
+
+
+Rng = Union[torch.Generator, ShardedGenerator]
+
+
+def batch_rand(rng: Rng, shape, device: Device) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``rng``, dim 0 the batch: a
+    :class:`ShardedGenerator` draws the global batch and keeps its rows."""
+    if not isinstance(rng, ShardedGenerator):
+        return torch.rand(shape, generator=rng, device=device)
+    n = shape[0]
+    full = torch.rand((rng.world * n, *shape[1:]), generator=rng.generator,
+                      device=device)
+    return full[rng.rows(n)]
+
+
+def batch_draws(rng: Rng, draw, bsz: int, *args):
+    """``draw(generator, bsz, *args)``, a dict (of dicts) of tensors whose
+    dim 0 is the batch: a :class:`ShardedGenerator` draws the global batch
+    and keeps its rows of every tensor."""
+    if not isinstance(rng, ShardedGenerator):
+        return draw(rng, bsz, *args)
+    rows = rng.rows(bsz)
+
+    def keep(tree):
+        if isinstance(tree, dict):
+            return {k: keep(v) for k, v in tree.items()}
+        return tree[rows]
+
+    return keep(draw(rng.generator, rng.world * bsz, *args))
+
+
+def at_state(rng: Rng, state: torch.Tensor) -> Rng:
+    """A fresh generator of ``rng``'s kind and device at ``state``."""
+    if isinstance(rng, ShardedGenerator):
+        return ShardedGenerator(at_state(rng.generator, state), rng.world,
+                                rng.rank)
+    g = torch.Generator(device=rng.device)
+    g.set_state(state)
+    return g

@@ -22,6 +22,10 @@ numbers from one seed:
 - an *apply* function (images, draws) that is deterministic, so the tests
   feed it the JAX package's own draws.
 
+The policies (``POLICIES``) take their draws through
+``core.rng.batch_draws``: given a ``ShardedGenerator`` (data parallelism)
+they draw for the global batch and keep the rank's rows.
+
 Per-image choices (a flip, a rotation, the order of the jitter adjustments)
 become per-image selects over the batch: no host round trip, no sync.
 Nothing here reads torch's global RNG.
@@ -36,6 +40,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.rng import batch_draws
 # the JAX module's _mirror_coord and _warp_taps live in ops/affine_warp.py
 # (mirror_coord, warp_taps), beside the kernel whose plain version they are
 from ..ops.affine_warp import (affine_coords, affine_warp_batch,
@@ -479,7 +484,8 @@ def fusion_train_batch(images: torch.Tensor, masks: torch.Tensor,
                        out_hw: Tuple[int, int] = (380, 380)):
     """uint8 images [B, H, W, 3] and masks [B, H, W] → the faithful policy,
     its draws taken from ``gen``."""
-    draws = fusion_train_draws(gen, images.shape[0], out_hw, images.shape[-1])
+    draws = batch_draws(gen, fusion_train_draws, images.shape[0], out_hw,
+                        images.shape[-1])
     return fusion_train_transform(images, masks, draws, out_hw)
 
 
@@ -526,7 +532,8 @@ def mae_train_batch(images: torch.Tensor, masks: Optional[torch.Tensor],
                     out_hw: Tuple[int, int] = (224, 224)):
     """uint8 images [B, H, W, 3] and masks [B, H, W] → the MAE train
     policy, its draws taken from ``gen``."""
-    draws = mae_train_draws(gen, images.shape[0], tuple(images.shape[1:3]))
+    draws = batch_draws(gen, mae_train_draws, images.shape[0],
+                        tuple(images.shape[1:3]))
     return mae_train_transform(images, masks, draws, out_hw)
 
 
@@ -539,8 +546,8 @@ def make_fusion_train_fast(out_hw: Tuple[int, int] = (380, 380)
     the fast policy equals the faithful one at every size.
     """
     def batched(images, masks, gen):
-        draws = fusion_train_draws(gen, images.shape[0], out_hw,
-                                   images.shape[-1])
+        draws = batch_draws(gen, fusion_train_draws, images.shape[0], out_hw,
+                            images.shape[-1])
         return fusion_train_fast_transform(images, masks, draws, out_hw)
 
     return batched

@@ -17,6 +17,13 @@ augmentation and normalisation run batched on the card.
   in-memory crops or from a ``DermRecords``; each epoch then gathers and
   augments its batches on the card.
 
+Several processes: a rank's loader gets its rows of each global batch as
+``order`` and its share of the batch as ``batch_size``
+(``parallel.distributed.process_epoch_order``).  JAX's ``place`` hook
+(:231-247,316-333) assembles global arrays from the processes' rows; the
+port has no global array (a rank computes on its rows and the steps
+reduce explicitly), so the loader has no such hook.
+
 Integer columns become int64, the index type of ``nn.Embedding`` and
 ``F.cross_entropy``.  cv2 is imported where a record is decoded with it.
 """

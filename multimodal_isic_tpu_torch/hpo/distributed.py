@@ -29,8 +29,9 @@ written).
 
 In a single process (no initialised group of more than one, and no store
 passed) everything is an in-memory no-op: the engines never branch on the
-number of processes.  The CLIs run one process until the parallel port
-(``cli.common.check_single_process``).
+number of processes.  The group, its size and this process's rank are
+``parallel.distributed``'s: ``cli.tune_mil`` joins it through
+``cli.common.setup_processes`` (the ``ISIC_*`` variables).
 """
 
 from __future__ import annotations
@@ -41,28 +42,9 @@ import os
 import time
 from typing import Dict, List, Optional
 
+from ..parallel.distributed import process_count, process_index  # noqa: F401
+
 _SEARCH_SEQ = itertools.count()
-
-
-def _group_ready() -> bool:
-    import torch.distributed as dist
-    return dist.is_available() and dist.is_initialized()
-
-
-def process_count() -> int:
-    """The default group's world size, 1 without one."""
-    if not _group_ready():
-        return 1
-    import torch.distributed as dist
-    return dist.get_world_size()
-
-
-def process_index() -> int:
-    """This process's rank in the default group, 0 without one."""
-    if not _group_ready():
-        return 0
-    import torch.distributed as dist
-    return dist.get_rank()
 
 
 def default_store():

@@ -45,6 +45,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..core.rng import batch_rand
 from ..ops.attention import flash_attention
 from ..ops.depthwise import conv2d_nhwc
 from ..ops.fused_convblock import fused_front
@@ -261,7 +262,8 @@ def random_masking(generator: torch.Generator, batch: int, num_patches: int,
     """MAE noise-argsort masking with optional lesion guidance →
     (ids_keep [B, len_keep], mask [B, N] float32 1 = masked,
     ids_restore [B, N]).  Noise is uniform from ``generator`` (on its
-    device); the sorts are stable, as ``jnp.argsort``.  Lesion patches
+    device; a ``ShardedGenerator`` draws the global batch's noise and keeps
+    the rank's rows); the sorts are stable, as ``jnp.argsort``.  Lesion patches
     (``lesion_overlap`` [B, N] bool) get a noise bias, so they are masked
     first."""
     dev = generator.device
@@ -269,7 +271,7 @@ def random_masking(generator: torch.Generator, batch: int, num_patches: int,
     if len_keep == num_patches:  # no masking: identity order, not a shuffle
         ids = torch.arange(num_patches, device=dev).expand(batch, -1)
         return ids, torch.zeros(batch, num_patches, device=dev), ids
-    noise = torch.rand(batch, num_patches, generator=generator, device=dev)
+    noise = batch_rand(generator, (batch, num_patches), dev)
     if lesion_overlap is not None:
         noise = noise + lesion_bias * lesion_overlap.to(noise.dtype)
     ids_shuffle = torch.argsort(noise, dim=1, stable=True)

@@ -21,8 +21,10 @@ Train and eval follow ``nn.Module.train()``/``eval()``.  BatchNorm in train
 mode normalizes with the biased batch variance and moves the running
 statistics with the unbiased one at flax momentum 0.99 (torch's 0.01), in
 float32 (the JAX ``TorchBatchNorm``).  The stochastic layers draw from the
-``rng`` generator the caller passes to ``forward``; a training forward that
-needs one and gets none raises (nothing reads torch's global RNG).  The
+``rng`` generator the caller passes to ``forward`` (a
+``core.rng.ShardedGenerator`` under data parallelism: the masks of the
+global batch, the rank's rows kept); a training forward that needs one and
+gets none raises (nothing reads torch's global RNG).  The
 BN-folded variant is inference-only: it starts in eval mode and its forward
 raises in train mode, as the JAX module does with ``train=True``.
 
@@ -60,6 +62,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..core.rng import Rng, at_state, batch_rand
 from ..ops import fused_dwconv
 from ..ops.depthwise import conv2d_nhwc, depthwise_conv2d
 
@@ -152,29 +155,29 @@ class BatchNorm(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            rng: Optional[torch.Generator]) -> torch.Tensor:
+            rng: Optional[Rng]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
     scale it by 1/keep, in train mode only; the mask comes from ``rng``."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=_need(rng), device=x.device) < keep
+    mask = batch_rand(_need(rng), x.shape, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def drop_connect(x: torch.Tensor, rate: float, training: bool,
-                 rng: Optional[torch.Generator]) -> torch.Tensor:
+                 rng: Optional[Rng]) -> torch.Tensor:
     """Per-sample stochastic depth on the residual branch: one Bernoulli
     keep flag per sample, scaled by 1/keep (JAX ``drop_connect``)."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
-                      generator=_need(rng), device=x.device) < keep
+    mask = batch_rand(_need(rng), (x.shape[0],) + (1,) * (x.dim() - 1),
+                      x.device) < keep
     return x / keep * mask.to(x.dtype)
 
 
-def _need(rng: Optional[torch.Generator]) -> torch.Generator:
+def _need(rng: Optional[Rng]) -> Rng:
     if rng is None:
         raise ValueError("a training forward with dropout or drop-connect "
                          "needs a torch.Generator: pass rng=")
@@ -216,7 +219,7 @@ class MBConv(nn.Module):
         self.bn2 = bn(out_filters)
 
     def forward(self, x: torch.Tensor,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[Rng] = None) -> torch.Tensor:
         inputs = x
         wd = self.depthwise_conv.weight.permute(2, 3, 1, 0)  # [K, K, 1, C]
         if self.bn_folded and self.pallas_serving and self.stride == 1:
@@ -257,7 +260,7 @@ def _save_conv_outputs(ctx, op, *args, **kwargs):
 
 
 def remat_block(block: nn.Module, x: torch.Tensor,
-                rng: Optional[torch.Generator], remat: str) -> torch.Tensor:
+                rng: Optional[Rng], remat: str) -> torch.Tensor:
     """``block(x, rng)`` in train mode, recomputed in the backward pass
     (``remat`` 'conv' or 'block').  Every run of the block, the recompute
     too, draws from a copy of ``rng`` at the state it had on entry, and its
@@ -272,10 +275,7 @@ def remat_block(block: nn.Module, x: torch.Tensor,
     def run(h):
         first = not runs
         runs.append(first)
-        g = None
-        if start is not None:
-            g = torch.Generator(device=rng.device)
-            g.set_state(start)
+        g = at_state(rng, start) if start is not None else None
         for m in bns:
             m.on_copies = True
         try:
@@ -335,7 +335,7 @@ class EfficientNet(nn.Module):
             self.eval()  # inference-only variant
 
     def forward(self, x: torch.Tensor,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[Rng] = None) -> torch.Tensor:
         if self.bn_folded and self.training:
             raise ValueError("bn_folded is an inference-only variant: call "
                              ".eval() on it")

@@ -7,8 +7,18 @@ the mean of batch losses (``net_utils.py:34``), the device-resident epochs
 (``make_fusion_train_epoch``, ``make_fusion_eval_epoch``,
 ``padded_epoch_order``), the per-batch epoch and validation loops, and
 ``evaluate_test`` → (accuracy, classification_report digits=5)
-(``net_utils.py:86-127``).  Single process: multi-process validation comes
-with the parallel port.
+(``net_utils.py:86-127``).
+
+Several processes (JAX :250-315 and the data-parallel step XLA partitions
+from the batch shardings): a rank holds its rows of each global batch.
+``make_fusion_train_step(..., grid=)`` swaps in the global-batch BatchNorm
+(``parallel.batchnorm``), draws dropout and drop-connect at the global
+batch's shape and keeps the rank's rows (``core.rng.ShardedGenerator``),
+and averages the gradients, the loss and the correct count over the data
+group in one all-reduce, so each rank's SGD step is the one-process step on
+the global batch.  ``validate_epoch(n_true=, group_size=)`` and
+``evaluate_test(n_true=)`` gather the ranks' logits in global order and
+trim the wrap-padded rows.
 
 The module holds its weights and BatchNorm statistics, and
 ``torch.optim.SGD`` holds the optimizer state: together they are the JAX
@@ -40,6 +50,8 @@ from ..core import metrics as M
 from ..data import augment as _aug
 from ..models.efficientnet import BatchNorm
 from ..models.fusion import MultiModalFusionNet
+from ..parallel.distributed import process_count
+from ..parallel.sharding import shard_generator
 
 BATCH_KEYS = ("image", "radiomics", "age", "sex", "loc", "artifacts")
 _TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
@@ -121,22 +133,40 @@ def fusion_optimizer(model: nn.Module, lr: float = 1e-3,
 
 # -------------------------------------------------------------- train side
 
-def make_fusion_train_step(model: nn.Module, optimizer: torch.optim.Optimizer
+def make_fusion_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                           grid=None
                            ) -> Callable[[Batch, Optional[torch.Generator]],
                                          Tuple[torch.Tensor, torch.Tensor]]:
     """(batch, rng) → (loss, n_correct), both 0-d device tensors: forward
     in the model's mode (train mode: BatchNorm on batch statistics, which it
     moves into its running statistics; dropout and drop-connect drawn from
-    ``rng``), backward, one optimizer step."""
+    ``rng``), backward, one optimizer step.
+
+    With a ``parallel.sharding.Grid`` of more than one data rank, ``batch``
+    is the rank's rows of the global batch: the model's BatchNorms become
+    global-batch ones over the data group (in place), the draws are the
+    global batch's (the rank's rows kept), and the gradients, the loss and
+    the correct count are averaged over the group before the step (the
+    loss is then the global batch's, the count its total)."""
+    group = grid.data_group if grid is not None else None
+    if group is not None:
+        from ..parallel.batchnorm import convert
+        convert(model, group)
 
     def step(batch: Batch, rng: Optional[torch.Generator] = None):
-        logits = model(**_inputs(batch), rng=rng)
+        logits = model(**_inputs(batch), rng=shard_generator(rng, grid))
         loss = cross_entropy(logits, batch["target"])
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        optimizer.step()
         correct = (logits.detach().argmax(dim=1) == batch["target"]).sum()
-        return loss.detach(), correct
+        loss = loss.detach()
+        if group is not None:
+            from ..parallel.sharding import all_reduce_grads_
+            stats = torch.stack([loss, correct.to(loss.dtype)])
+            all_reduce_grads_(model, group, [stats])
+            loss, correct = stats[0], stats[1] * grid.n_data
+        optimizer.step()
+        return loss, correct
 
     return step
 
@@ -196,7 +226,10 @@ def train_epoch(step_fn, model: nn.Module, loader: Iterable[Batch],
                 rng_stream, logger=None, epoch: int = 0
                 ) -> Tuple[float, float]:
     """One train epoch over a loader → (epoch_loss, epoch_acc); one dropout
-    generator per batch from ``rng_stream``, one readback at the end."""
+    generator per batch from ``rng_stream``, one readback at the end.  In
+    several processes the step is the data-parallel one over every rank
+    (the CLIs run no tensor parallelism), whose loss and correct count are
+    the global batch's, so the total counts every rank's rows."""
     losses, correct, total = [], [], 0
     for batch in loader:
         loss, ncorr = step_fn(batch, rng_stream.next())
@@ -204,7 +237,7 @@ def train_epoch(step_fn, model: nn.Module, loader: Iterable[Batch],
         correct.append(ncorr)
         total += int(batch["target"].shape[0])
     epoch_loss, n_correct = _read_back(losses, correct)
-    epoch_acc = n_correct / max(total, 1)
+    epoch_acc = n_correct / max(total * process_count(), 1)
     log_train_epoch(logger, model, epoch, epoch_loss, epoch_acc)
     return epoch_loss, epoch_acc
 
@@ -297,16 +330,44 @@ def padded_epoch_order(n: int, batch_size: int):
 
 
 def validate_epoch(eval_fn, loader: Iterable[Batch], logger=None,
-                   epoch: int = 0) -> float:
-    """Epoch val loss = mean of per-batch CE means (``net_utils.py:34``),
-    the single-process branch of the JAX ``validate_epoch``."""
-    losses, correct, total = [], [], 0
-    for batch in loader:
-        loss, logits = eval_fn(batch)
-        losses.append(loss)
-        correct.append((logits.argmax(dim=1) == batch["target"]).sum())
-        total += int(batch["target"].shape[0])
-    epoch_loss, n_correct = _read_back(losses, correct)
+                   epoch: int = 0, n_true: Optional[int] = None,
+                   group_size: Optional[int] = None) -> float:
+    """Epoch val loss = mean of per-batch CE means (``net_utils.py:34``).
+
+    ``n_true`` / ``group_size`` (JAX :250-290): a multi-process loader's
+    order is wrap-padded to full global batches
+    (``parallel.distributed.process_epoch_order(pad_to_full=True)``), and
+    batch means over it would weight the duplicated rows twice.  So the
+    logits of every rank are gathered in global order, trimmed to ``n_true`` and the per-sample
+    losses (float64, on the host) regrouped into the ``group_size``
+    batches, the last one partial, of the one-process loader: the statistic
+    of the one-process run, up to the order of the float sums."""
+    if n_true is not None:
+        from ..parallel.distributed import gather_to_host
+
+        logit_chunks, target_chunks = [], []
+        for batch in loader:
+            _, logits = eval_fn(batch)
+            logit_chunks.append(gather_to_host(logits.float()))
+            target_chunks.append(gather_to_host(batch["target"]))
+        logits = np.concatenate(logit_chunks)[:n_true].astype(np.float64)
+        targets = np.concatenate(target_chunks)[:n_true].astype(np.int64)
+        shifted = logits - logits.max(axis=1, keepdims=True)
+        logp = shifted - np.log(np.exp(shifted).sum(axis=1, keepdims=True))
+        per_sample = -logp[np.arange(n_true), targets]
+        g = group_size or n_true
+        batch_means = [per_sample[k:k + g].mean() for k in range(0, n_true, g)]
+        epoch_loss = float(np.mean(batch_means)) if batch_means else float("nan")
+        n_correct = int(np.sum(np.argmax(logits, axis=1) == targets))
+        total = n_true
+    else:
+        losses, correct, total = [], [], 0
+        for batch in loader:
+            loss, logits = eval_fn(batch)
+            losses.append(loss)
+            correct.append((logits.argmax(dim=1) == batch["target"]).sum())
+            total += int(batch["target"].shape[0])
+        epoch_loss, n_correct = _read_back(losses, correct)
     if logger is not None:
         logger.log("val/epoch_loss", epoch_loss, step=epoch)
         logger.log("val/epoch_acc", n_correct / max(total, 1), step=epoch)
@@ -316,16 +377,20 @@ def validate_epoch(eval_fn, loader: Iterable[Batch], logger=None,
 
 
 def evaluate_test(eval_fn, loader: Iterable[Batch], logger=None,
-                  num_classes: int = 7,
-                  n_true: Optional[int] = None) -> Tuple[float, str]:
+                  num_classes: int = 7, n_true: Optional[int] = None
+                  ) -> Tuple[float, str]:
     """→ (accuracy, classification_report).  ``logger`` (optional) receives
     ``assign(key, value)`` for accuracy, balanced accuracy and the report,
-    and ``print(text)``; ``n_true`` trims padded trailing rows."""
+    and ``print(text)``.  The predictions and targets of every rank (this
+    process's alone without a group) are gathered in global order (JAX
+    :300-315), and ``n_true`` trims the wrap-padded trailing rows."""
+    from ..parallel.distributed import gather_to_host
+
     preds, targets = [], []
     for batch in loader:
         _, logits = eval_fn(batch)
-        preds.append(logits.argmax(dim=1).cpu().numpy())
-        targets.append(batch["target"].cpu().numpy())
+        preds.append(gather_to_host(logits.argmax(dim=1)))
+        targets.append(gather_to_host(batch["target"]))
     y_pred = np.concatenate(preds)[:n_true]
     y_true = np.concatenate(targets)[:n_true]
     acc = float(np.mean(y_pred == y_true))

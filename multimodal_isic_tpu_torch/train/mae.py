@@ -24,8 +24,15 @@ changes nothing but is restored all the same).
 :func:`train_mae` runs an epoch either device-resident (``fused_train`` /
 ``fused_val``) or over loaders of batches on the card (``train_batches`` /
 ``val_batches``, JAX :188-288), and calls ``epoch_hook`` after each epoch
-(``cli/train_ae.py``'s diagnostics).  The multi-process ``val_n_true``
-branch waits for the parallel port.
+(``cli/train_ae.py``'s diagnostics).
+
+Several processes: ``make_mae_train_step(..., grid=)`` draws the masks of
+the global batch and keeps the rank's rows (``core.rng.ShardedGenerator``;
+every sample masks the same patch count, so the mean of the ranks' losses
+is the global batch's) and averages the gradients and the loss over the
+data group before the step; ``train_mae(val_n_true=)`` gathers the
+per-sample validation losses in global order and trims the wrap-padded
+rows (JAX :261-270).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from ..core import checkpoint as ckpt
+from ..parallel.sharding import shard_generator
 # init_mae(model, generator): the parameters initialised in place with the
 # JAX initialisers' distributions
 from ..models.convmae import ConvMAE, Masking
@@ -70,22 +78,32 @@ def optimizer_step_count(optimizer: torch.optim.Optimizer) -> int:
 # -------------------------------------------------------------- train side
 
 def make_mae_train_step(model: ConvMAE, optimizer: torch.optim.Optimizer,
-                        mask_ratio: float, use_lesion_mask: bool = False
-                        ) -> Callable:
+                        mask_ratio: float, use_lesion_mask: bool = False,
+                        grid=None) -> Callable:
     """→ ``step(images, lesion_mask=None, generator=None, masking=None)`` →
     the loss, a detached 0-d device tensor: the masked forward in the
     model's mode, backward, one optimizer step.  The lesion mask guides the
-    masking only when ``use_lesion_mask`` is set."""
+    masking only when ``use_lesion_mask`` is set.  With a
+    ``parallel.sharding.Grid`` of more than one data rank ``images`` are
+    the rank's rows of the global batch (module docstring)."""
+    group = grid.data_group if grid is not None else None
 
     def step(images: torch.Tensor, lesion_mask: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None,
              masking: Optional[Masking] = None) -> torch.Tensor:
-        loss, _, _ = model(images, mask_ratio, generator,
+        loss, _, _ = model(images, mask_ratio,
+                           shard_generator(generator, grid),
                            lesion_mask if use_lesion_mask else None, masking)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            from ..parallel.sharding import all_reduce_grads_
+            loss = loss.reshape(1)
+            all_reduce_grads_(model, group, [loss])
+            loss = loss[0]
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 
@@ -224,7 +242,8 @@ def train_mae(model: ConvMAE, optimizer: torch.optim.Optimizer,
               val_batches: Optional[Callable] = None,
               mask_ratio: float = 0.75, eval_mask_ratio: float = 0.75,
               use_lesion_mask: bool = False,
-              epoch_hook: Optional[Callable] = None) -> Dict:
+              epoch_hook: Optional[Callable] = None, grid=None,
+              val_n_true: Optional[int] = None) -> Dict:
     """The epoch loop (``train_ae.py:163-216``; JAX :188-288).  ``rng`` is a
     ``core.rng.RngPool``; each epoch takes one generator of its ``mask``
     stream for the train masking and one of its ``eval`` stream for the
@@ -241,6 +260,12 @@ def train_mae(model: ConvMAE, optimizer: torch.optim.Optimizer,
     ``val_batches()`` for an eval step at ``eval_mask_ratio``.  A loader's
     epoch loss is the batch losses' mean weighted by batch size.
 
+    Several processes (``grid``): the loaders give the rank's rows of each
+    global batch, the train step is the data-parallel one, and with
+    ``val_n_true`` (the validation loader's order wrap-padded to full
+    global batches) the per-sample losses of every rank are gathered in
+    global order and their first ``val_n_true`` averaged.
+
     At each new best validation loss the weights are copied (the live
     ``state_dict`` aliases the parameters that later steps change) and,
     with ``checkpoint_dir``, model + optimizer + step + RNG are saved.
@@ -251,10 +276,12 @@ def train_mae(model: ConvMAE, optimizer: torch.optim.Optimizer,
         raise ValueError("give one of fused_train / train_batches and one "
                          "of fused_val / val_batches")
     train_step = (make_mae_train_step(model, optimizer, mask_ratio,
-                                      use_lesion_mask)
+                                      use_lesion_mask, grid)
                   if fused_train is None else None)
     eval_step = (make_mae_eval_step(model, eval_mask_ratio)
-                 if fused_val is None else None)
+                 if fused_val is None and val_n_true is None else None)
+    persample = (make_mae_eval_persample_step(model, eval_mask_ratio)
+                 if val_n_true is not None else None)
     best_val, best_state, path = float("inf"), None, None
     history = []
     for epoch in range(num_epochs):
@@ -271,6 +298,15 @@ def train_mae(model: ConvMAE, optimizer: torch.optim.Optimizer,
             train_loss = _weighted_mean(losses, sizes)
         if fused_val is not None:
             val_loss = float(fused_val(rng["eval"].next()))
+        elif val_n_true is not None:
+            from ..parallel.distributed import gather_to_host
+            gen = shard_generator(rng["eval"].next(), grid)
+            group = grid.data_group if grid is not None else None
+            per_sample = np.concatenate([
+                gather_to_host(persample(batch["image"], gen), group)
+                for batch in val_batches()])[:val_n_true]
+            val_loss = (float(per_sample.astype(np.float64).mean())
+                        if len(per_sample) else float("nan"))
         else:
             gen = rng["eval"].next()
             losses, sizes = [], []

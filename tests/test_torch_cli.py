@@ -252,10 +252,10 @@ def test_parse_config_device_rule_and_tf32(workspace, monkeypatch):
     for key in ("gpu", "cuda:x", "mps"):
         with pytest.raises(ValueError):
             tcommon.resolve_device(key)
-    tmain.check_single_process(cfg)
+    tcommon.check_single_process(cfg)
     for mesh in ({"data": 4}, {"model": 2}):
         with pytest.raises(ValueError, match="one card"):
-            tmain.check_single_process(config_from_dict({"mesh": mesh}))
+            tcommon.check_single_process(config_from_dict({"mesh": mesh}))
     monkeypatch.setenv("ISIC_COORDINATOR", "localhost:1")
     with pytest.raises(ValueError, match="multi-process"):
         tmain.main(["--config_path", _write(root, "dev", config)])

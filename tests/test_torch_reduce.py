@@ -291,13 +291,17 @@ def test_cv2_batched_path_equals_per_image(extracted):
 
 
 def test_extract_radiomics_one_card_rule():
-    """``_maybe_mesh`` on one card: data -1 or 1 gives chunks of 16; a mesh
-    over more cards raises until the parallel port."""
+    """``_maybe_mesh`` with one card a process: chunks of 16; data -1 or 1
+    fits one process, and a mesh over more cards (data 8, or model 2)
+    raises there."""
+    from multimodal_isic_tpu_torch.cli.common import check_mesh
+
+    assert tex.CHUNK == 16
     for data in (-1, 1):
-        assert tex.chunk_size(config_from_dict({"mesh": {"data": data}})) == 16
+        check_mesh(config_from_dict({"mesh": {"data": data}}), 1)
     for mesh in ({"data": 8}, {"data": 1, "model": 2}):
         with pytest.raises(ValueError, match="one card"):
-            tex.chunk_size(config_from_dict({"mesh": mesh}))
+            check_mesh(config_from_dict({"mesh": mesh}), 1)
     ex = TRad.RadiomicsExtractor(device="cpu")
     assert ex.get_enabled_image_types() == \
         JRad.RadiomicsExtractor.get_enabled_image_types(None)
