@@ -1,0 +1,8 @@
+"""Median host ms of the harness's call into the model a batch, without
+a sync, over the window (layer: host dispatch)."""
+
+from gpubench.readers import median_of
+
+
+def read(ctx):
+    return median_of(ctx, "dispatch_ms")
