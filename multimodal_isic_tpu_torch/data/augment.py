@@ -29,6 +29,9 @@ they draw for the global batch and keep the rank's rows.
 Per-image choices (a flip, a rotation, the order of the jitter adjustments)
 become per-image selects over the batch: no host round trip, no sync.
 Nothing here reads torch's global RNG.
+
+A policy's call is one ``preprocess`` span, its colour jitter a
+``preprocess.jitter`` span inside it (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from ..core.rng import batch_draws
 # (mirror_coord, warp_taps), beside the kernel whose plain version they are
 from ..ops.affine_warp import (affine_coords, affine_warp_batch,
                                affine_warp_batch_reference, warp_taps)
+from ..utils import trace
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -126,6 +130,7 @@ def normalize_imagenet(img: torch.Tensor,
     return (img - m) / s
 
 
+@trace.spanned("preprocess")
 def preprocess_eval_batch(imgs_u8: torch.Tensor, out_hw: Tuple[int, int],
                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 batch [B, H, W, 3] → resize → ImageNet normalize, in ``dtype``,
@@ -453,7 +458,8 @@ def _train_transform(images, masks, draws, out_hw, fast: bool):
         imgs = affine_warp_batch(imgs, inv, out_hw, apply=ssr["apply"])
     else:
         imgs, masks = shift_scale_rotate(imgs, warp_masks, draws["ssr"])
-    imgs = color_jitter(imgs, draws["jitter"])
+    with trace.span("preprocess.jitter"):
+        imgs = color_jitter(imgs, draws["jitter"])
     imgs = gauss_noise(imgs, draws["noise"])
     return normalize_imagenet(imgs), masks
 
@@ -479,6 +485,7 @@ def fusion_train_fast_transform(images: torch.Tensor,
     return _train_transform(images, masks, draws, out_hw, fast=True)
 
 
+@trace.spanned("preprocess")
 def fusion_train_batch(images: torch.Tensor, masks: torch.Tensor,
                        gen: torch.Generator,
                        out_hw: Tuple[int, int] = (380, 380)):
@@ -489,6 +496,7 @@ def fusion_train_batch(images: torch.Tensor, masks: torch.Tensor,
     return fusion_train_transform(images, masks, draws, out_hw)
 
 
+@trace.spanned("preprocess")
 def fusion_eval_batch(images: torch.Tensor, masks: torch.Tensor,
                       out_hw: Tuple[int, int] = (380, 380)):
     """Reference fusion eval policy (``main.py:89-94``)."""
@@ -496,6 +504,7 @@ def fusion_eval_batch(images: torch.Tensor, masks: torch.Tensor,
             resize_nearest(masks.float(), out_hw))
 
 
+@trace.spanned("preprocess")
 def mae_eval_batch(images: torch.Tensor, masks: torch.Tensor,
                    out_hw: Tuple[int, int] = (224, 224)):
     """Reference MAE eval / latent-extraction policy (``train_ae.py:102-105``,
@@ -527,6 +536,7 @@ def mae_train_transform(images: torch.Tensor, masks: Optional[torch.Tensor],
     return normalize_imagenet(imgs), masks
 
 
+@trace.spanned("preprocess")
 def mae_train_batch(images: torch.Tensor, masks: Optional[torch.Tensor],
                     gen: torch.Generator,
                     out_hw: Tuple[int, int] = (224, 224)):
@@ -545,6 +555,7 @@ def make_fusion_train_fast(out_hw: Tuple[int, int] = (380, 380)
     computed in place, so unlike the JAX policy there is no pad budget and
     the fast policy equals the faithful one at every size.
     """
+    @trace.spanned("preprocess")
     def batched(images, masks, gen):
         draws = batch_draws(gen, fusion_train_draws, images.shape[0], out_hw,
                             images.shape[-1])

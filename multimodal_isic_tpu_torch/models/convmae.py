@@ -51,6 +51,7 @@ from ..ops.depthwise import conv2d_nhwc
 from ..ops.fused_convblock import fused_front
 from ..ops.fused_mlp import fused_ln_mlp, ln_rows
 from ..ops.patches import patch_overlap_mask, patchify
+from ..utils import trace
 
 LN_EPS = 1e-6  # flax's default (torch's is 1e-5)
 PATCH = 16
@@ -364,6 +365,7 @@ class ConvMAE(nn.Module):
                    if lesion_mask is not None else None)
         return random_masking(generator, batch, n, mask_ratio, overlap)
 
+    @trace.spanned("convmae.encode")
     def encode(self, imgs: torch.Tensor, mask_ratio: float = 0.0,
                generator: Optional[torch.Generator] = None,
                lesion_mask: Optional[torch.Tensor] = None,
@@ -395,11 +397,14 @@ class ConvMAE(nn.Module):
         x = x.reshape(b, self.num_patches, self.embed_dims[2])
         x = self.patch_embed3.norm(x)
         x = x + self.pos_embed.to(x.dtype)
-        # drop masked tokens before the transformer
-        x = torch.gather(x, 1, ids_keep[:, :, None].expand(-1, -1, x.shape[-1]))
-        for blk in self.blocks3:
-            x = self._block(blk, x)
-        return self.norm(x).float(), mask, ids_restore
+        with trace.span("convmae.vit"):
+            # drop masked tokens before the transformer
+            x = torch.gather(x, 1,
+                             ids_keep[:, :, None].expand(-1, -1, x.shape[-1]))
+            for blk in self.blocks3:
+                x = self._block(blk, x)
+            x = self.norm(x)
+        return x.float(), mask, ids_restore
 
     forward_encoder = encode
 

@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils import trace
 from .efficientnet import EfficientNet, dropout, feature_dim, fold_batchnorm
 
 SHARED_DIM = 128
@@ -141,6 +142,7 @@ class MultiModalFusionNet(nn.Module):
             self.fusion_fc1 = nn.Linear(din, 256)
             self.fusion_fc2 = nn.Linear(256, num_classes)
 
+    @trace.spanned("fusion.forward")
     def forward(self, image=None, radiomics=None, age=None, sex=None, loc=None,
                 artifacts=None, image_features: Optional[torch.Tensor] = None,
                 rng: Optional[torch.Generator] = None):

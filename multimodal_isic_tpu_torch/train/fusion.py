@@ -52,6 +52,7 @@ from ..models.efficientnet import BatchNorm
 from ..models.fusion import MultiModalFusionNet
 from ..parallel.distributed import process_count
 from ..parallel.sharding import shard_generator
+from ..utils import trace
 
 BATCH_KEYS = ("image", "radiomics", "age", "sex", "loc", "artifacts")
 _TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
@@ -147,25 +148,33 @@ def make_fusion_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     global-batch ones over the data group (in place), the draws are the
     global batch's (the rank's rows kept), and the gradients, the loss and
     the correct count are averaged over the group before the step (the
-    loss is then the global batch's, the count its total)."""
+    loss is then the global batch's, the count its total).
+
+    A call is one ``step`` span holding ``step.forward`` (the model, the
+    loss and the count), ``step.backward`` and ``step.optimizer`` (the
+    all-reduce, then the update); ``utils/trace.py``."""
     group = grid.data_group if grid is not None else None
     if group is not None:
         from ..parallel.batchnorm import convert
         convert(model, group)
 
+    @trace.spanned("step")
     def step(batch: Batch, rng: Optional[torch.Generator] = None):
-        logits = model(**_inputs(batch), rng=shard_generator(rng, grid))
-        loss = cross_entropy(logits, batch["target"])
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        correct = (logits.detach().argmax(dim=1) == batch["target"]).sum()
+        with trace.span("step.forward"):
+            logits = model(**_inputs(batch), rng=shard_generator(rng, grid))
+            loss = cross_entropy(logits, batch["target"])
+            correct = (logits.detach().argmax(dim=1) == batch["target"]).sum()
+        with trace.span("step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         loss = loss.detach()
-        if group is not None:
-            from ..parallel.sharding import all_reduce_grads_
-            stats = torch.stack([loss, correct.to(loss.dtype)])
-            all_reduce_grads_(model, group, [stats])
-            loss, correct = stats[0], stats[1] * grid.n_data
-        optimizer.step()
+        with trace.span("step.optimizer"):
+            if group is not None:
+                from ..parallel.sharding import all_reduce_grads_
+                stats = torch.stack([loss, correct.to(loss.dtype)])
+                all_reduce_grads_(model, group, [stats])
+                loss, correct = stats[0], stats[1] * grid.n_data
+            optimizer.step()
         return loss, correct
 
     return step

@@ -48,6 +48,7 @@ from ..parallel.sharding import shard_generator
 # JAX initialisers' distributions
 from ..models.convmae import ConvMAE, Masking
 from ..models.convmae import init_convmae as init_mae  # noqa: F401
+from ..utils import trace
 from .fusion import eval_mode
 
 
@@ -85,24 +86,31 @@ def make_mae_train_step(model: ConvMAE, optimizer: torch.optim.Optimizer,
     model's mode, backward, one optimizer step.  The lesion mask guides the
     masking only when ``use_lesion_mask`` is set.  With a
     ``parallel.sharding.Grid`` of more than one data rank ``images`` are
-    the rank's rows of the global batch (module docstring)."""
+    the rank's rows of the global batch (module docstring).  A call is one
+    ``step`` span holding ``step.forward``, ``step.backward`` and
+    ``step.optimizer`` (``utils/trace.py``)."""
     group = grid.data_group if grid is not None else None
 
+    @trace.spanned("step")
     def step(images: torch.Tensor, lesion_mask: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None,
              masking: Optional[Masking] = None) -> torch.Tensor:
-        loss, _, _ = model(images, mask_ratio,
-                           shard_generator(generator, grid),
-                           lesion_mask if use_lesion_mask else None, masking)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with trace.span("step.forward"):
+            loss, _, _ = model(images, mask_ratio,
+                               shard_generator(generator, grid),
+                               lesion_mask if use_lesion_mask else None,
+                               masking)
+        with trace.span("step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         loss = loss.detach()
-        if group is not None:
-            from ..parallel.sharding import all_reduce_grads_
-            loss = loss.reshape(1)
-            all_reduce_grads_(model, group, [loss])
-            loss = loss[0]
-        optimizer.step()
+        with trace.span("step.optimizer"):
+            if group is not None:
+                from ..parallel.sharding import all_reduce_grads_
+                loss = loss.reshape(1)
+                all_reduce_grads_(model, group, [loss])
+                loss = loss[0]
+            optimizer.step()
         return loss
 
     return step
