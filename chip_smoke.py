@@ -9,8 +9,8 @@ Drives ``multimodal_isic_tpu_torch`` end to end at the full EfficientNet-B3
 width with random weights from a seed:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the kernels (every ``csrc/*.cu``: 12 libraries, with
-   ``csrc/convmae_common.cuh`` 13 sources), one nvcc per source, started
+2. builds the kernels (every ``csrc/*.cu``: 13 libraries, with
+   ``csrc/convmae_common.cuh`` 14 sources), one nvcc per source, started
    together;
 3. holds each fused MBConv kernel against its plain PyTorch version at every
    geometry the B3@380 serving forward gives it, at bs 16 and bs 128 in bf16
@@ -23,19 +23,23 @@ width with random weights from a seed:
    with the plain folded path and with the unfolded standard-BN model;
 5. holds the warp kernel against its plain version and ``F.grid_sample`` at
    bs 16, 380², on the policy's draws, its domain corners, the identity, an
-   overhang beyond 128 px, and at an odd non-square size;
+   overhang beyond 128 px, and at an odd non-square size; holds the colour
+   jitter kernel against its plain version at bs 16 and bs 128, 380², on
+   the policy's draws (images not drawn and a rerun bit for bit);
 6. trains: 160 rendered requests, ``StratifiedKFold(10)`` fold 0 staged in
    ``DeviceDataset``, the full B3 fusion net in float32 with the CLI's
    defaults, 2 device-resident epochs of the fast policy, validation epochs,
    early stopping, a checkpoint saved and restored into a fresh model, BN
    folded, and the kernel-path test pass; checks finite losses, moved
-   weights and statistics, one warp launch per step, 2 + 20 fused launches
+   weights and statistics, one warp and one jitter launch per step, 2 + 20
+   fused launches
    per test forward, and that the restored model gives the saved one's
    logits;
 7. trains 20 steps on one fixed batch (no augmentation, the same dropout
    masks every step) and checks that the loss falls;
 8. times the kernels against their plain versions (and the warp against
-   ``grid_sample``; the fused MBConv kernels at bs 16 and bs 128), the fast
+   ``grid_sample``; the fused MBConv kernels, the warp and the colour jitter
+   at bs 16 and bs 128), the fast
    policy, the train step in img/s at bs 16 f32 and bs 128 with a bf16
    backbone, and preprocess + folded forward on the kernel path against the
    plain path, with CUDA events, and profiles that forward at bs 16 and 128
@@ -264,6 +268,8 @@ FEATURE_REL_TOL = 1e-4
 SOURCE = {"dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
           "expand_dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
           "affine_warp_batch": "multimodal_isic_tpu_torch/csrc/affine_warp.cu",
+          "color_jitter_batch":
+              "multimodal_isic_tpu_torch/csrc/color_jitter.cu",
           "glcm_matrices": "multimodal_isic_tpu_torch/csrc/glcm.cu",
           "glrlm_runs": "multimodal_isic_tpu_torch/csrc/glrlm_runs.cu",
           "joint_histogram": "multimodal_isic_tpu_torch/csrc/histogram.cu",
@@ -280,6 +286,9 @@ SOURCE = {"dw_silu_pool": "multimodal_isic_tpu_torch/csrc/fused_dwconv.cu",
 REPLACES = {"dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:272",
             "expand_dw_silu_pool": "multimodal_isic_tpu/ops/fused_dwconv.py:326",
             "affine_warp_batch": "multimodal_isic_tpu/ops/pallas_warp.py:190",
+            # no pallas_call: the JAX colour jitter is plain jnp
+            "color_jitter_batch": "none (multimodal_isic_tpu/data/augment.py:331,"
+                                  " plain jnp)",
             "glcm_matrices": "multimodal_isic_tpu/ops/pallas_glcm.py:95",
             "glrlm_runs": "multimodal_isic_tpu/ops/pallas_glrlm.py:105",
             "joint_histogram": "multimodal_isic_tpu/ops/pallas_hist.py:81",
@@ -325,6 +334,12 @@ LOGIT_TOL_UNFOLDED = dict(rtol=0.1, atol=0.15)
 # per px, reaches ~0.05 at 380².
 WARP_ATOL = 2e-2
 GRID_SAMPLE_ATOL = 0.1
+# Colour jitter kernel vs its plain version, 0..255 scale, as
+# tests/test_torch_cuda_kernels.py::JITTER_ATOL: each operation rounds as
+# the plain version's does; gray's three products are summed in another
+# order and the mean is a float64 sum against a float32 reduction, errors of
+# ~6e-5 that four steps carry in at most x2 each.
+JITTER_ATOL = 1e-3
 # Folded f32 kernel path vs the unfolded f32 model it was folded from: the
 # fold is exact in float64, then rounded to f32 once.
 LOGIT_TOL_FOLDED_F32 = dict(rtol=1e-3, atol=1e-3)
@@ -688,6 +703,84 @@ def check_warp(device, bsz=BATCH):
     return worst
 
 
+def _jitter_call(cj, imgs, d):
+    return cj.color_jitter_batch(imgs, d["apply"], d["brightness"],
+                                 d["contrast"], d["saturation"], d["hue"],
+                                 d["perm"])
+
+
+def check_jitter(device):
+    """Colour jitter kernel vs its plain version at the main path's shapes,
+    bs 16 and 128 × 380², on ``color_jitter_draw``'s draws: within
+    ``JITTER_ATOL``, images not drawn and a rerun bit for bit, one launch a
+    call → worst error."""
+    from multimodal_isic_tpu_torch.data.augment import color_jitter_draw
+    from multimodal_isic_tpu_torch.ops import color_jitter as cj
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    print(f"colour jitter kernel, 0..255 scale, max_abs_err tolerance vs "
+          f"plain {JITTER_ATOL}")
+    worst, failures = 0.0, []
+    for bsz in (BATCH, LARGE_BATCH):
+        d = color_jitter_draw(g, bsz)
+        imgs = torch.rand(bsz, IMG, IMG, 3, generator=g, device=device) * 255
+        imgs[::2] = imgs[::2].round()  # ties between channels, 0 and 255
+        before = cj.color_jitter_batch.launches
+        out = _jitter_call(cj, imgs, d)
+        again = _jitter_call(cj, imgs, d)
+        calls = cj.color_jitter_batch.launches - before
+        ref = cj.color_jitter_reference(imgs, d)
+        err = float((out - ref).abs().max())
+        same = torch.equal(out, again)
+        kept = torch.equal(out[~d["apply"]], imgs[~d["apply"]])
+        ok = err <= JITTER_ATOL and same and kept and calls == 2
+        print(f"check jitter bs{bsz} {IMG}² ({int(d['apply'].sum())} drawn): "
+              f"max_abs_err vs plain {err:.3e}; not drawn "
+              f"{'same bits' if kept else 'CHANGED'}; rerun "
+              f"{'same bits' if same else 'DIFFERENT BITS'}; {calls} launches "
+              f"in 2 calls ({'ok' if ok else 'FAIL'})")
+        worst = max(worst, err)
+        if not ok:
+            failures.append(bsz)
+    if failures:
+        raise AssertionError(f"jitter out of tolerance or unstable at bs "
+                             f"{failures}")
+    return worst
+
+
+def jitter_bound_ms(bsz, h, w):
+    """(bytes ms, operations ms) of one jitter call: the batch read once
+    and written once; the operations are not counted (a few hundred float32
+    operations a pixel in the hue step, far under the bytes' time)."""
+    return 2 * bsz * h * w * 3 * 4 / HBM_BPS * 1e3, 0.0
+
+
+def time_jitter(device):
+    """Colour jitter kernel vs its plain version at bs 16 and 128 × 380² on
+    the policy's draws, in the order plain, kernel, kernel, plain → {bsz:
+    (medians ms, bound ms, bytes ms, operations ms)}."""
+    from multimodal_isic_tpu_torch.data.augment import color_jitter_draw
+    from multimodal_isic_tpu_torch.ops import color_jitter as cj
+    from multimodal_isic_tpu_torch.utils.profiling import timeit_closed
+    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    times = {}
+    for bsz in (BATCH, LARGE_BATCH):
+        d = color_jitter_draw(g, bsz)
+        imgs = torch.rand(bsz, IMG, IMG, 3, generator=g, device=device) * 255
+        fns = {"kernel": lambda: _jitter_call(cj, imgs, d),
+               "plain": lambda: cj.color_jitter_reference(imgs, d)}
+        t = {k: [] for k in fns}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            t[name].append(timeit_closed(fns[name], iters=20, repeats=5))
+        med = {k: min(r["median"] for r in v) * 1e3 for k, v in t.items()}
+        b_bytes, b_ops = jitter_bound_ms(bsz, IMG, IMG)
+        times[bsz] = (med, max(b_bytes, b_ops), b_bytes, b_ops)
+        print(f"time jitter bs{bsz} {IMG}² f32 ({int(d['apply'].sum())} "
+              f"drawn): kernel {med['kernel']:.4f} ms, plain "
+              f"{med['plain']:.4f} ms; bound {b_bytes:.4f} ms (bytes): "
+              f"{b_bytes / med['kernel']:.1%} of it")
+    return times
+
+
 def empty_model(device, **cfg):
     """A fusion net laid out on ``device`` without initialising it (its
     state dict is loaded next)."""
@@ -698,7 +791,8 @@ def empty_model(device, **cfg):
 
 
 def train_slice(device, test_reqs):
-    """The training path at full width → (warp launches, train steps)."""
+    """The training path at full width → ({warp, jitter: launches},
+    the train dataset)."""
     from multimodal_isic_tpu_torch.core import checkpoint
     from multimodal_isic_tpu_torch.core.early_stopping import EarlyStopping
     from multimodal_isic_tpu_torch.core.rng import RngPool
@@ -708,6 +802,7 @@ def train_slice(device, test_reqs):
     from multimodal_isic_tpu_torch.data.pipeline import DeviceDataset
     from multimodal_isic_tpu_torch.models.fusion import fold_fusion_params
     from multimodal_isic_tpu_torch.ops import affine_warp as aw
+    from multimodal_isic_tpu_torch.ops import color_jitter as cj
     from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
     from multimodal_isic_tpu_torch.train import fusion as T
 
@@ -739,7 +834,7 @@ def train_slice(device, test_reqs):
     val_order, val_valid = T.padded_epoch_order(len(val_ds), BATCH)
     stopper = EarlyStopping(patience=5)
 
-    aw.affine_warp_batch.launches = 0
+    aw.affine_warp_batch.launches = cj.color_jitter_batch.launches = 0
     n_steps = 0
     for epoch in range(1, EPOCHS + 1):
         t0 = time.perf_counter()
@@ -760,10 +855,12 @@ def train_slice(device, test_reqs):
             raise AssertionError("non-finite loss")
         if stop:
             break
-    launches = aw.affine_warp_batch.launches
-    print(f"warp launches in training: {launches} over {n_steps} train steps")
-    if launches != n_steps:
-        raise AssertionError(f"{launches} warp launches != {n_steps} steps")
+    launches = {"affine_warp_batch": aw.affine_warp_batch.launches,
+                "color_jitter_batch": cj.color_jitter_batch.launches}
+    print(f"warp and jitter launches in training: {launches} over {n_steps} "
+          f"train steps")
+    if set(launches.values()) != {n_steps}:
+        raise AssertionError(f"launches {launches} != {n_steps} steps")
 
     after = model.state_dict()
     params = dict(model.named_parameters())
@@ -2791,6 +2888,7 @@ def cli_slice(device):
     from multimodal_isic_tpu_torch.entry import entry
     from multimodal_isic_tpu_torch.models.fusion import fold_fusion_params
     from multimodal_isic_tpu_torch.ops import affine_warp as aw
+    from multimodal_isic_tpu_torch.ops import color_jitter as cj
     from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
     from multimodal_isic_tpu_torch.train import fusion as T
 
@@ -2801,10 +2899,11 @@ def cli_slice(device):
 
     # the main path: counts at 0, the CLI, counts read
     torch.cuda.reset_peak_memory_stats()
-    aw.affine_warp_batch.launches = 0
+    aw.affine_warp_batch.launches = cj.color_jitter_batch.launches = 0
     fd.dw_silu_pool.launches = fd.expand_dw_silu_pool.launches = 0
     result, events, wall = run_cli(root, config, "cached")
     launches = {"affine_warp_batch": aw.affine_warp_batch.launches,
+                "color_jitter_batch": cj.color_jitter_batch.launches,
                 "dw_silu_pool": fd.dw_silu_pool.launches,
                 "expand_dw_silu_pool": fd.expand_dw_silu_pool.launches}
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2817,8 +2916,8 @@ def cli_slice(device):
           f"test): {epochs} epochs in {wall:.1f} s; test accuracy "
           f"{result['accuracy']:.5f}; launches {launches} ({steps} train "
           f"steps, {forwards} test forwards); peak {out['peak_gib']:.2f} GiB")
-    want = {"affine_warp_batch": steps, "dw_silu_pool": 2 * forwards,
-            "expand_dw_silu_pool": 20 * forwards}
+    want = {"affine_warp_batch": steps, "color_jitter_batch": steps,
+            "dw_silu_pool": 2 * forwards, "expand_dw_silu_pool": 20 * forwards}
     if epochs != CLI_EPOCHS or launches != want:
         raise AssertionError(f"CLI launches {launches} != {want} "
                              f"({epochs} epochs)")
@@ -2897,14 +2996,18 @@ def cli_slice(device):
     stream_cfg = json.loads(json.dumps(config))
     stream_cfg["training_plan"]["parameters"].update(
         {"device_cache": False, "epochs": 1})
-    aw.affine_warp_batch.launches = 0
+    aw.affine_warp_batch.launches = cj.color_jitter_batch.launches = 0
     result_s, events_s, wall_s = run_cli(root, stream_cfg, "streaming")
     warp_s = aw.affine_warp_batch.launches
+    jitter_s = cj.color_jitter_batch.launches
     steps_s = -(-n_train // BATCH)
     print(f"CLI streaming epoch (device_cache false): {wall_s:.1f} s for the "
-          f"run; warp launches {warp_s} over {steps_s} steps")
-    if warp_s != steps_s or not bool(torch.isfinite(result_s["logits"]).all()):
-        raise AssertionError(f"streaming CLI: {warp_s} warp launches")
+          f"run; warp launches {warp_s}, jitter launches {jitter_s} over "
+          f"{steps_s} steps")
+    if warp_s != steps_s or jitter_s != steps_s or \
+            not bool(torch.isfinite(result_s["logits"]).all()):
+        raise AssertionError(f"streaming CLI: {warp_s} warp launches, "
+                             f"{jitter_s} jitter launches")
     train_records = DermRecords(df_train.iloc[result["train_idx"]])
     order = np.random.RandomState(SEED + 1).permutation(len(train_records))
     busy = torch.randn(2048, 2048, device=device)
@@ -5156,7 +5259,7 @@ def prepare() -> torch.device:
     alone starts with this (README)."""
     from multimodal_isic_tpu_torch.ops import _build
     from multimodal_isic_tpu_torch.ops import affine_warp as aw
-    from multimodal_isic_tpu_torch.ops import attention
+    from multimodal_isic_tpu_torch.ops import attention, color_jitter
     from multimodal_isic_tpu_torch.ops import connected_components as cc
     from multimodal_isic_tpu_torch.ops import fused_convblock, fused_mlp
     from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
@@ -5183,7 +5286,8 @@ def prepare() -> torch.device:
             "fused_ln_mlp": fused_mlp._lib, "flash_attention": attention._lib,
             "fused_front": fused_convblock._lib,
             "fused_ln_mlp_bwd": fused_mlp._bwd_lib,
-            "firstorder": histogram._fo_lib, "fused_mlp": fused_mlp._mlp_lib}
+            "firstorder": histogram._fo_lib, "fused_mlp": fused_mlp._mlp_lib,
+            "color_jitter": color_jitter._lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda load: load(), libs.values()))
     print(f"build: {len(libs)} kernel libraries in "
@@ -5289,18 +5393,20 @@ def main() -> int:
               f"(|features| max {float(feats[other].abs().max()):.3f})")
         torch.testing.assert_close(feats["kernel"], feats[other], **tol)
 
-    # 5. the warp kernel
+    # 5. the warp and colour jitter kernels
     worst_err["affine_warp_batch"] = check_warp(device)
+    worst_err["color_jitter_batch"] = check_jitter(device)
 
     # 6. the training slice end to end
-    warp_launches, train_ds = train_slice(device, reqs)
-    launches["affine_warp_batch"] = warp_launches
+    train_launches, train_ds = train_slice(device, reqs)
+    launches.update(train_launches)
 
     # 7. learning evidence on a fixed batch
     learning_evidence(device, train_ds)
 
     # 8. times
     warp_times = time_training(device, train_ds)
+    jitter_times = time_jitter(device)
     totals = time_kernels(device)
     time_kernels(device, LARGE_BATCH)  # printed; the kernels line keeps bs 16
     for bsz in (BATCH, LARGE_BATCH):
@@ -5488,6 +5594,9 @@ def main() -> int:
     totals["affine_warp_batch"] = [med["kernel"], med["plain"], bound, b_bytes,
                                    b_ops]
     library = {"affine_warp_batch": med["grid_sample"]}
+    med, bound, b_bytes, b_ops = jitter_times[BATCH]
+    totals["color_jitter_batch"] = [med["kernel"], med["plain"], bound,
+                                    b_bytes, b_ops]
     for name, (ker, pln, bnd, bb, bo, lib) in (*rad_times.items(),
                                                *mae_times.items(),
                                                *fo_times.items()):
@@ -5502,7 +5611,8 @@ def main() -> int:
                       else "operations"),
          "library_ms": library.get(name)}
         for name in ("expand_dw_silu_pool", "dw_silu_pool",
-                     "affine_warp_batch") + RAD_KERNELS + MAE_KERNELS
+                     "affine_warp_batch", "color_jitter_batch")
+        + RAD_KERNELS + MAE_KERNELS
         + ("fused_ln_mlp_backward", "firstorder_accumulate", "fused_mlp")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

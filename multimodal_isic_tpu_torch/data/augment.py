@@ -26,8 +26,10 @@ The policies (``POLICIES``) take their draws through
 ``core.rng.batch_draws``: given a ``ShardedGenerator`` (data parallelism)
 they draw for the global batch and keep the rank's rows.
 
-Per-image choices (a flip, a rotation, the order of the jitter adjustments)
-become per-image selects over the batch: no host round trip, no sync.
+Per-image choices (a flip, a rotation) become per-image selects over the
+batch: no host round trip, no sync.  The colour jitter's per-image order is
+the kernel's on the card (``ops/color_jitter.py``), selects in its plain
+version.
 Nothing here reads torch's global RNG.
 
 A policy's call is one ``preprocess`` span, its colour jitter a
@@ -48,11 +50,14 @@ from ..core.rng import batch_draws
 # (mirror_coord, warp_taps), beside the kernel whose plain version they are
 from ..ops.affine_warp import (affine_coords, affine_warp_batch,
                                affine_warp_batch_reference, warp_taps)
+# the colour jitter's plain version (and its HSV conversions) lives in
+# ops/color_jitter.py beside the kernel; the names stay importable from here
+from ..ops.color_jitter import (_hsv_to_rgb, _rgb_to_hsv,  # noqa: F401
+                                color_jitter_batch)
 from ..utils import trace
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-LUMA = (0.299, 0.587, 0.114)
 
 Draws = Dict[str, torch.Tensor]
 
@@ -321,42 +326,6 @@ def random_resized_crop(imgs: torch.Tensor, masks: Optional[torch.Tensor],
 
 # ------------------------------------------------------------- colour augs
 
-def _rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
-    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-    maxc = torch.maximum(torch.maximum(r, g), b)
-    minc = torch.minimum(torch.minimum(r, g), b)
-    v = maxc
-    delta = maxc - minc
-    s = torch.where(maxc > 0, delta / maxc.clamp(min=1e-12),
-                    torch.zeros_like(maxc))
-    safe = delta.clamp(min=1e-12)
-    rc, gc, bc = (maxc - r) / safe, (maxc - g) / safe, (maxc - b) / safe
-    h = torch.where(r == maxc, bc - gc,
-                    torch.where(g == maxc, 2.0 + rc - bc, 4.0 + gc - rc))
-    h = torch.where(delta > 0, torch.remainder(h / 6.0, 1.0),
-                    torch.zeros_like(h))
-    return torch.stack([h, s, v], dim=-1)
-
-
-def _hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
-    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
-    i = torch.floor(h * 6.0)
-    f = h * 6.0 - i
-    p = v * (1.0 - s)
-    q = v * (1.0 - s * f)
-    t = v * (1.0 - s * (1.0 - f))
-    i = torch.remainder(i.long(), 6)
-
-    def pick(opts):
-        out = opts[5]
-        for idx in range(4, -1, -1):
-            out = torch.where(i == idx, opts[idx], out)
-        return out
-
-    return torch.stack([pick([v, q, p, p, t, v]), pick([t, v, v, q, p, p]),
-                        pick([p, p, t, v, v, q])], dim=-1)
-
-
 def color_jitter_draw(gen: torch.Generator, bsz: int, brightness: float = 0.2,
                       contrast: float = 0.2, saturation: float = 0.2,
                       hue: float = 0.1, p: float = 0.5) -> Draws:
@@ -373,43 +342,13 @@ def color_jitter_draw(gen: torch.Generator, bsz: int, brightness: float = 0.2,
 
 
 def color_jitter(imgs: torch.Tensor, draws: Draws) -> torch.Tensor:
-    """torchvision-order ColorJitter on [B, H, W, 3]: the four adjustments
-    run in each image's own order ``perm``.  Step i computes the four
-    adjustments of the batch and selects per image the one ``perm[:, i]``
-    names, which is the JAX ``lax.switch`` order exactly."""
-    lum = torch.tensor(LUMA, dtype=imgs.dtype, device=imgs.device)
-    f = {k: _per_image(draws[k].to(imgs.dtype), imgs)
-         for k in ("brightness", "contrast", "saturation")}
-    fh = draws["hue"].to(imgs.dtype).view(-1, 1, 1)
-
-    def adj_brightness(x):
-        return x * f["brightness"]
-
-    def adj_contrast(x):
-        mean = (x.clamp(0, 255) @ lum).mean(dim=(1, 2)).view(-1, 1, 1, 1)
-        return mean + f["contrast"] * (x - mean)
-
-    def adj_saturation(x):
-        gray = (x.clamp(0, 255) @ lum)[..., None]
-        return gray + f["saturation"] * (x - gray)
-
-    def adj_hue(x):
-        hsv = _rgb_to_hsv(x.clamp(0, 255) / 255.0)
-        shifted = torch.stack([torch.remainder(hsv[..., 0] + fh, 1.0),
-                               hsv[..., 1], hsv[..., 2]], dim=-1)
-        return _hsv_to_rgb(shifted) * 255.0
-
-    adjust = (adj_brightness, adj_contrast, adj_saturation, adj_hue)
-    out = imgs
-    for step in range(4):
-        which = draws["perm"][:, step]
-        cands = [fn(out) for fn in adjust]
-        new = cands[3]
-        for j in (2, 1, 0):
-            new = torch.where(_per_image(which == j, out), cands[j], new)
-        out = new
-    out = out.clamp(0.0, 255.0)
-    return torch.where(_per_image(draws["apply"], imgs), out, imgs)
+    """torchvision-order ColorJitter on [B, H, W, 3] float32: the four
+    adjustments run in each image's own order ``perm``, through
+    ``ops.color_jitter.color_jitter_batch`` (the kernel on the card, the
+    plain version on the CPU)."""
+    return color_jitter_batch(imgs, draws["apply"], draws["brightness"],
+                              draws["contrast"], draws["saturation"],
+                              draws["hue"], draws["perm"])
 
 
 def gauss_noise_draw(gen: torch.Generator, shape: Tuple[int, ...],

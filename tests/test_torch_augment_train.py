@@ -22,6 +22,7 @@ import torch
 
 from multimodal_isic_tpu.data import augment as jaug
 from multimodal_isic_tpu_torch.data import augment as taug
+from multimodal_isic_tpu_torch.ops import color_jitter as cj
 
 NORM_Q, NORM_MAX = 0.05, 2.0        # on the normalized scale (test_pallas_warp)
 PIX_Q, PIX_MAX = 1e-2, 2.0 * 255 * 0.225  # the same on the 0..255 scale
@@ -188,6 +189,54 @@ def test_hsv_roundtrip_matches_jax():
         taug._hsv_to_rgb(hsv_t).numpy(),
         np.asarray(jaug._hsv_to_rgb(jnp.asarray(hsv_t.numpy()))),
         atol=1e-6, rtol=0)
+
+
+def _cpu_jitter_args(bsz, seed=12):
+    g = torch.Generator().manual_seed(seed)
+    return taug.color_jitter_draw(g, bsz)
+
+
+@pytest.mark.parametrize("hw", [(16, 16), (37, 45)])
+def test_color_jitter_wrapper_on_the_cpu_is_the_plain_version(hw):
+    """On a CPU tensor the wrapper (and ``data.augment.color_jitter``)
+    returns the plain version's result bit for bit and launches nothing."""
+    d = _cpu_jitter_args(12)
+    assert 0 < int(d["apply"].sum()) < 12
+    imgs = torch.from_numpy(_batch(12, 12, hw)[0]).float()
+    before = cj.color_jitter_batch.launches
+    got = cj.color_jitter_batch(imgs, d["apply"], d["brightness"],
+                                d["contrast"], d["saturation"], d["hue"],
+                                d["perm"])
+    want = cj.color_jitter_reference(imgs, d)
+    assert torch.equal(got, want)
+    assert torch.equal(taug.color_jitter(imgs, d), want)
+    assert cj.color_jitter_batch.launches == before
+
+
+JITTER_BAD = {
+    "imgs dtype": lambda i, d: (i.double(), d),
+    "imgs channels": lambda i, d: (torch.zeros(*i.shape[:3], 4), d),
+    "imgs rank": lambda i, d: (i[0], d),
+    "apply dtype": lambda i, d: (i, {**d, "apply": d["apply"].int()}),
+    "apply shape": lambda i, d: (i, {**d, "apply": d["apply"][:-1]}),
+    "factor dtype": lambda i, d: (i, {**d, "hue": d["hue"].double()}),
+    "factor shape": lambda i, d: (i, {**d, "contrast": d["contrast"][:, None]}),
+    "perm dtype": lambda i, d: (i, {**d, "perm": d["perm"].int()}),
+    "perm shape": lambda i, d: (i, {**d, "perm": d["perm"][:, :3]}),
+    "device": lambda i, d: (i, {**d, "saturation": d["saturation"].to("meta")}),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(JITTER_BAD))
+def test_color_jitter_wrapper_checks_its_arguments(bad):
+    """The wrapper's checks of dtype, shape and device raise on the CPU as
+    on the card."""
+    imgs = torch.from_numpy(_batch(13, 4, (8, 8))[0]).float()
+    imgs, d = JITTER_BAD[bad](imgs, _cpu_jitter_args(4))
+    with pytest.raises(ValueError):
+        cj.color_jitter_batch(imgs, d["apply"], d["brightness"],
+                              d["contrast"], d["saturation"], d["hue"],
+                              d["perm"])
 
 
 def test_gauss_noise_matches_jax():

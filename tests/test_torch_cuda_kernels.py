@@ -8,6 +8,7 @@ present.  Run them on a GPU machine with
 This file imports no JAX (and ``--noconftest`` skips the JAX conftest), so
 it runs where JAX is not installed."""
 
+import itertools
 import math
 
 import pytest
@@ -15,6 +16,7 @@ import torch
 
 from multimodal_isic_tpu_torch.ops import affine_warp as aw
 from multimodal_isic_tpu_torch.ops import attention as attn
+from multimodal_isic_tpu_torch.ops import color_jitter as cj
 from multimodal_isic_tpu_torch.ops import connected_components as cc
 from multimodal_isic_tpu_torch.ops import fused_convblock as fcb
 from multimodal_isic_tpu_torch.ops import fused_dwconv as fd
@@ -36,6 +38,19 @@ WARP_ATOL = 2e-2
 # f32 rounding, times (n-1)/2 px, times up to 255 per px, reaches ~0.05 at
 # 380² with a large overhang
 GRID_SAMPLE_ATOL = 0.1
+# colour jitter, 0..255 scale: the kernel rounds each operation as the plain
+# version does.  What differs: gray's three products are summed in another
+# order than the plain version's matrix product (1 ulp of gray, 1.5e-5 at
+# 255); the mean is a float64 sum against a float32 reduction (~1e-6 of the
+# mean, 2.6e-4 at 255, times 1 - fc <= 0.2); on the card the plain version
+# divides by 255 and 6 as a product with the float32 reciprocal (1 ulp).
+# A step carries an error in at most x1.2 (the factors) or about x2 (hue:
+# the RGB moves by ~6·delta·dh and h by <= 2·dx / (6·delta), so the
+# near-grey pixels whose hue is ill-conditioned move little), so four steps
+# keep the largest source, ~6e-5, within ~1e-3.  The hue's exact-equality
+# branches (r == maxc) and its sectors agree at their boundaries: a 1-ulp
+# difference there moves the result by ulps, not by a branch.
+JITTER_ATOL = 1e-3
 
 
 @pytest.fixture
@@ -364,6 +379,132 @@ def test_warp_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):  # more channels than a row buffer holds
         aw.affine_warp_batch(torch.zeros(2, 8, 8, aw.MAX_C + 1, device=cuda),
                              inv, (8, 8))
+
+
+# ------------------------------------------------------------ colour jitter
+
+ORDERS = list(itertools.permutations(range(4)))
+
+
+def _jitter_args(g, bsz, device, apply):
+    """The fast policy's factor draws for ``bsz`` images; image i takes
+    order ``ORDERS[i % 24]`` and the flag ``apply[i]``."""
+    from multimodal_isic_tpu_torch.data.augment import color_jitter_draw
+    d = color_jitter_draw(g, bsz)
+    d["perm"] = torch.tensor([ORDERS[i % 24] for i in range(bsz)],
+                             device=device)
+    d["apply"] = torch.tensor(apply, device=device)
+    return d
+
+
+def _jitter_imgs(g, bsz, h, w, device):
+    """Images on the 0..255 scale: whole values (ties between channels,
+    grey pixels, 0 and 255) in even images, continuous ones in odd."""
+    imgs = torch.randint(0, 256, (bsz, h, w, 3), generator=g,
+                         device=device).float()
+    imgs[1::2] = torch.rand(imgs[1::2].shape, generator=g, device=device) * 255
+    imgs[0, : h // 2, :, 1:] = imgs[0, : h // 2, :, :1]  # grey rows
+    return imgs
+
+
+def _jitter(imgs, d):
+    return cj.color_jitter_batch(imgs, d["apply"], d["brightness"],
+                                 d["contrast"], d["saturation"], d["hue"],
+                                 d["perm"])
+
+
+@pytest.mark.parametrize("bsz,h,w", [(64, 380, 380), (48, 37, 45),
+                                     (48, 97, 131)])
+def test_jitter_kernel_every_order_matches_plain(cuda, bsz, h, w):
+    """All 24 orders, each drawn and not drawn, at the train step's bs 64 ×
+    380² and at two ragged sizes (a slice and a chunk end mid-image):
+    within JITTER_ATOL of the plain version, the images not drawn copied bit
+    for bit, one launch a call, the same bits on a rerun."""
+    g = torch.Generator(device=cuda).manual_seed(40 + h)
+    apply = [(i // 24) % 2 == 0 if i < 48 else i % 3 > 0 for i in range(bsz)]
+    d = _jitter_args(g, bsz, cuda, apply)
+    imgs = _jitter_imgs(g, bsz, h, w, cuda)
+    before = cj.color_jitter_batch.launches
+    out = _jitter(imgs, d)
+    again = _jitter(imgs, d)
+    torch.cuda.synchronize()
+    assert cj.color_jitter_batch.launches == before + 2
+    assert out.shape == imgs.shape and out.dtype == torch.float32
+    assert torch.equal(out, again)
+    assert torch.equal(out[~d["apply"]], imgs[~d["apply"]])
+    ref = cj.color_jitter_reference(imgs, d)
+    err = (out - ref).abs().amax(dim=(1, 2, 3))
+    print(f"jitter {bsz}x{h}x{w}: max |kernel - plain| {float(err.max()):.3e}"
+          f" (image {int(err.argmax())}), mean "
+          f"{float((out - ref).abs().mean()):.3e}")
+    torch.testing.assert_close(out, ref, atol=JITTER_ATOL, rtol=0)
+    moved = (out != imgs).flatten(1).any(1)
+    assert bool(moved[d["apply"]].all())
+
+
+def test_jitter_kernel_matches_the_cpu_plain_version(cuda):
+    """Against the plain version on the CPU, which divides by 255 and 6 as
+    the kernel does (on the card the plain version multiplies by the
+    reciprocal)."""
+    g = torch.Generator(device=cuda).manual_seed(44)
+    d = _jitter_args(g, 24, cuda, [True] * 24)
+    imgs = _jitter_imgs(g, 24, 37, 45, cuda)
+    out = _jitter(imgs, d).cpu()
+    ref = cj.color_jitter_reference(imgs.cpu(), {k: v.cpu()
+                                                  for k, v in d.items()})
+    print(f"jitter vs the CPU: max {float((out - ref).abs().max()):.3e}, "
+          f"{float((out == ref).float().mean()):.4f} of the values equal")
+    torch.testing.assert_close(out, ref, atol=JITTER_ATOL, rtol=0)
+
+
+def test_jitter_kernel_on_the_fast_policy_once_a_batch(cuda):
+    """The fast policy at 380² (uint8 450² crops, draws from a generator on
+    the card): one jitter launch and one warp launch a batch."""
+    from multimodal_isic_tpu_torch.data.augment import make_fusion_train_fast
+    policy = make_fusion_train_fast((380, 380))
+    g = torch.Generator(device=cuda).manual_seed(45)
+    imgs = torch.randint(0, 256, (8, 450, 450, 3), generator=g, device=cuda,
+                         dtype=torch.uint8)
+    before = (cj.color_jitter_batch.launches, aw.affine_warp_batch.launches)
+    for _ in range(3):
+        out, _ = policy(imgs, None, g)
+    torch.cuda.synchronize()
+    assert out.shape == (8, 380, 380, 3) and bool(out.isfinite().all())
+    assert (cj.color_jitter_batch.launches - before[0],
+            aw.affine_warp_batch.launches - before[1]) == (3, 3)
+
+
+@pytest.mark.parametrize("bad", ["cluster", "threads", "slice"])
+def test_jitter_kernel_refuses_a_plan_that_is_not_its(cuda, monkeypatch, bad):
+    g = torch.Generator(device=cuda).manual_seed(47)
+    d = _jitter_args(g, 2, cuda, [True, False])
+    imgs = _jitter_imgs(g, 2, 40, 41, cuda)
+    plan = cj.jitter_plan
+    change = {"cluster": 8, "threads": 32, "slice": 128}[bad]
+    monkeypatch.setattr(cj, "jitter_plan", lambda *a: {
+        **plan(*a), bad: plan(*a)[bad] + change})
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _jitter(imgs, d)
+
+
+def test_jitter_kernel_rejects_what_it_cannot_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(48)
+    d = _jitter_args(g, 2, cuda, [True, True])
+    imgs = _jitter_imgs(g, 2, 8, 8, cuda)
+    with pytest.raises(ValueError):  # dtype
+        _jitter(imgs.double(), d)
+    with pytest.raises(ValueError):  # shape: four channels
+        _jitter(torch.zeros(2, 8, 8, 4, device=cuda), d)
+    with pytest.raises(ValueError):  # perm on another device
+        _jitter(imgs, {**d, "perm": d["perm"].cpu()})
+    with pytest.raises(ValueError):  # not contiguous
+        _jitter(imgs.transpose(1, 2), d)
+    with pytest.raises(ValueError):  # perm not contiguous
+        _jitter(imgs, {**d, "perm": d["perm"].t().contiguous().t()})
+    before = cj.color_jitter_batch.launches
+    assert _jitter(imgs[:0], {k: v[:0] for k, v in d.items()}).shape == (
+        0, 8, 8, 3)
+    assert cj.color_jitter_batch.launches == before  # nothing to launch
 
 
 # ----------------------------------------------------- radiomics kernels

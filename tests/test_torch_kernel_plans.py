@@ -1,19 +1,23 @@
-"""Host side of the GLCM counts (B4, ``ops/glcm.py``) and ShiftScaleRotate
-warp (B3, ``ops/affine_warp.py``) kernels, on the CPU, where the CUDA
-kernels cannot run: their launch plans (``glcm_plan``, ``warp_plan``),
+"""Host side of the GLCM counts (B4, ``ops/glcm.py``), ShiftScaleRotate
+warp (B3, ``ops/affine_warp.py``) and colour jitter (``ops/color_jitter.py``)
+kernels, on the CPU, where the CUDA kernels cannot run: their launch plans
+(``glcm_plan``, ``warp_plan``, ``jitter_plan``),
 plain-Python models of how each kernel splits its work (B4: a cluster of
 bands of rows with a halo row, lanes of 4 columns in 128-column strips,
 16-bit counters, the cluster's sum and P + Pᵀ; B3: a warp's strip of output
 pixels, 4 a lane, and its stores from the row buffer with a ragged head and
-tail), held against the plain versions, and the kernel's fast REFLECT_101
-reflection against ``torch.fmod``'s.  Host-side only: no JAX, every test
-well under 0.1 s."""
+tail), held against the plain versions; the jitter's plan, a cluster's
+slices and its warps' chunks in both phases; B3's fast REFLECT_101
+reflection against ``torch.fmod``'s and the jitter's remainder against
+``torch.remainder``'s.  Host-side only: no JAX, every test well under
+0.1 s."""
 
 import numpy as np
 import pytest
 import torch
 
 from multimodal_isic_tpu_torch.ops import affine_warp as aw
+from multimodal_isic_tpu_torch.ops import color_jitter as cj
 from multimodal_isic_tpu_torch.ops import glcm
 
 NG = 64
@@ -275,3 +279,78 @@ def test_fast_reflection_equals_fmod_bit_for_bit(n):
     got = _fast_mirror(c, n)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert bool(((got >= 0) & (got <= max(n - 1, 0))).all())
+
+
+# ------------------------------------------------------ the jitter: the plan
+
+JITTER_SIZES = [(64, 380, 380), (16, 380, 380), (48, 37, 45), (48, 97, 131),
+                (1, 1, 1), (2, 1, 7), (3, 5, 300), (1, 1000, 1000)]
+
+
+def jitter_chunks(p: dict, n: int, r: int, warp: int, phase: int):
+    """Pixels ``[start, end)`` of the image that warp ``warp`` of block
+    ``r`` takes, chunk by chunk, in phase 1 (forward) or 2 (reverse), as
+    ``csrc/color_jitter.cu`` walks them."""
+    lo = min(n, r * p["slice"])
+    hi = min(n, lo + p["slice"])
+    nch = -(-(hi - lo) // p["chunk"])
+    ks = list(range(warp, nch, p["threads"] // 32))
+    return [(lo + k * p["chunk"], min(hi, lo + (k + 1) * p["chunk"]))
+            for k in (ks if phase == 1 else ks[::-1])]
+
+
+@pytest.mark.parametrize("shape", JITTER_SIZES)
+def test_jitter_plan_walks_every_pixel_once_a_phase(shape):
+    b, h, w = shape
+    n = h * w
+    p = cj.jitter_plan(*shape)
+    assert (p["cluster"], p["threads"], p["chunk"]) == (8, 512, 128)
+    assert p["blocks"] == 8 * b and p["slice"] % p["chunk"] == 0
+    assert p["slice"] * (p["cluster"] - 1) < n + p["cluster"] * p["chunk"]
+    assert cj.jitter_plan(1, h, w)["slice"] == p["slice"]  # size alone
+    for phase in (1, 2):
+        seen = np.zeros(n, np.int32)
+        for r in range(p["cluster"]):
+            for warp in range(p["threads"] // 32):
+                spans = jitter_chunks(p, n, r, warp, phase)
+                starts = [a for a, _ in spans]
+                assert starts == sorted(starts, reverse=phase == 2)
+                for a, e in spans:
+                    assert 0 < e - a <= p["chunk"]  # 3·128 floats a buffer
+                    seen[a:e] += 1
+        assert (seen == 1).all()
+    if shape == (64, 380, 380):  # the train step
+        assert p["slice"] == 18176 and p["blocks"] == 512
+
+
+def test_jitter_plan_refuses_what_the_kernel_cannot_take():
+    for shape in ((0, 8, 8), (1, 0, 8), (1, 8, 0), (cj.MAX_BATCH + 1, 2, 2),
+                  (1, 2 ** 15, 2 ** 15)):
+        with pytest.raises(ValueError):
+            cj.jitter_plan(*shape)
+
+
+# ------------------------------------------- the jitter: the remainder
+
+def _rem1(a: torch.Tensor) -> torch.Tensor:
+    """``csrc/color_jitter.cu::rem1``: the fractional part with ``a``'s
+    sign (fmod's: -0 for a negative whole number), plus 1 where it is
+    negative."""
+    m = torch.copysign(a - torch.trunc(a), a)
+    return torch.where(m < 0, m + 1.0, m)
+
+
+def test_jitter_remainder_equals_torch_remainder_bit_for_bit():
+    """Over the range the hue takes (h / 6 in [-1/6, 5/6], plus a shift in
+    [-0.1, 0.1]), its whole numbers, the floats beside them and a dense
+    random sweep: the kernel's form equals ``torch.remainder(a, 1.0)``."""
+    ks = np.arange(-3, 4, dtype=np.float32)
+    pts = np.concatenate([ks, np.nextafter(ks, np.float32(-np.inf)),
+                          np.nextafter(ks, np.float32(np.inf)),
+                          np.float32([1e-9, -1e-9, 1e-30, -1e-30, 0.5, -0.5]),
+                          np.random.RandomState(0).uniform(-2, 2, 20000)
+                          .astype(np.float32)])
+    a = torch.from_numpy(pts)
+    want = torch.remainder(a, 1.0)
+    got = _rem1(a)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
