@@ -16,9 +16,15 @@ that checkpoint → the test report.
 - Image-less modality subsets read metadata-only records (no decode).
 - ``radiomics_dim`` is the width the records give (the 102-wide placeholder
   where the radiomics pickles are absent), the width the JAX model infers.
+- The image size follows the backbone (``image_hw``): EfficientNet trains
+  and evaluates at 380² (``FUSED_EVAL_HW``), a MaxViT preset at its own
+  size (``maxvit.PARAMS``: 384² for ``maxvit-base``, whose 12-wide windows
+  cannot tile 380/4 = 95); the policies are ``augment.fusion_policies``
+  at that size.
 - ``fold_bn_eval`` runs the final test pass on the BN-folded net with the
   fused MBConv kernels (``backbone_pallas_serving``), the faster path on the
-  H100 (``PERF.md`` §5).
+  H100 (``PERF.md`` §5).  A backbone without that path (MaxViT) takes the
+  unfolded net.
 - Several processes (``ISIC_*``, ``cli.common.setup_processes``; JAX
   :50-57,95-105,149,172-184,204,212-250): every rank loads its rows of each
   global batch of 16 through the streaming loader (no ``device_cache``),
@@ -37,7 +43,7 @@ from __future__ import annotations
 
 import os
 import uuid
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +54,8 @@ from ..core.rng import RngPool
 from ..core.splits import StratifiedKFold
 from ..data import augment
 from ..data.pipeline import DermRecords, DeviceDataset, DeviceLoader
-from ..models.fusion import MultiModalFusionNet, fold_fusion_params
+from ..models import maxvit
+from ..models.fusion import MultiModalFusionNet, fold_fusion_params, is_maxvit
 from ..parallel import distributed as dist
 from ..parallel.sharding import replicate_, shard_transform
 from ..train.fusion import (build_fusion, evaluate_test, fusion_optimizer,
@@ -59,8 +66,8 @@ from ..train.fusion import (build_fusion, evaluate_test, fusion_optimizer,
 from ..utils.logging import RunLogger
 from .common import parse_config, setup_processes
 
-# eval-side image size of the device-resident validation epoch (the
-# policies bake 380² in; tests patch this beside their small policies)
+# EfficientNet's training and evaluation image size (tests patch it to run
+# small images)
 FUSED_EVAL_HW = (380, 380)
 GLOBAL_BS = 16  # reference batch size (main.py:120-126)
 
@@ -71,6 +78,14 @@ def _empty_model(device: torch.device, **cfg) -> MultiModalFusionNet:
     with torch.device("meta"):
         model = MultiModalFusionNet(**cfg)
     return model.to_empty(device=device)
+
+
+def image_hw(backbone: str) -> Tuple[int, int]:
+    """The size ``backbone`` trains and evaluates at."""
+    if is_maxvit(backbone):
+        s = maxvit.PARAMS[backbone].image_size
+        return s, s
+    return FUSED_EVAL_HW
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -117,10 +132,13 @@ def _run(config, device: torch.device, logger, grid=None) -> Dict[str, Any]:
     # image-less modality subsets never read the image branch: no decode,
     # no augmentation (metadata-only records)
     with_image = "image" in plan["modality"]
+    backbone = params_cfg["backbone"]
+    hw = image_hw(backbone)
+    policies = augment.fusion_policies(hw)
     train_policy = ("fusion_train_fast" if params_cfg["augment_fast"]
                     else "fusion_train")
-    train_tf = augment.POLICIES[train_policy] if with_image else None
-    eval_tf = augment.POLICIES["fusion_eval"] if with_image else None
+    train_tf = policies[train_policy] if with_image else None
+    eval_tf = policies["fusion_eval"] if with_image else None
 
     def records(df, rad, idx=None):
         r = rad[idx] if (rad is not None and idx is not None) else rad
@@ -148,7 +166,7 @@ def _run(config, device: torch.device, logger, grid=None) -> Dict[str, Any]:
                      fusion_level=plan["fusion_level"],
                      fusion_strategy=plan["fusion"],
                      radiomics_dim=train_records.radiomics_dim,
-                     backbone=params_cfg["backbone"])
+                     backbone=backbone)
     if logger is not None:
         logger.assign("group_tags",
                       list(plan["modality"]) + [plan["fusion"]])
@@ -177,7 +195,7 @@ def _run(config, device: torch.device, logger, grid=None) -> Dict[str, Any]:
                                               transform=train_tf)
         val_device = DeviceDataset.from_records(val_records, device=device,
                                                 with_masks=False)
-        fused_val = make_fusion_eval_epoch(model, out_hw=FUSED_EVAL_HW)
+        fused_val = make_fusion_eval_epoch(model, out_hw=hw)
         val_order, val_valid = padded_epoch_order(len(val_device), GLOBAL_BS)
         staged = train_device.images.nbytes + val_device.images.nbytes
         print(f"device_cache: {len(train_device)} train + {len(val_device)} "
@@ -229,14 +247,14 @@ def _run(config, device: torch.device, logger, grid=None) -> Dict[str, Any]:
     dist.barrier()
 
     restored = ckpt.restore_checkpoint(model_name, device=device)
-    if params_cfg["fold_bn_eval"] and with_image:
+    if params_cfg["fold_bn_eval"] and with_image and not is_maxvit(backbone):
         # serving path: backbone BN folded into the conv weights, the
         # stride-1 MBConv blocks on the fused kernels
         test_model = _empty_model(device, **model_cfg,
                                   backbone_bn_folded=True,
                                   backbone_pallas_serving=True)
-        test_model.load_state_dict(fold_fusion_params(
-            restored, backbone=params_cfg["backbone"]))
+        test_model.load_state_dict(fold_fusion_params(restored,
+                                                      backbone=backbone))
     else:
         test_model = _empty_model(device, **model_cfg)
         test_model.load_state_dict(restored)

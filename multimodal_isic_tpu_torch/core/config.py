@@ -86,9 +86,11 @@ class TrainParameters(_DictAccess):
     use_flash_attention: bool = False
     use_fused_mlp: bool = True
     remat_blocks: bool = False
+    # an efficientnet.PARAMS name ('efficientnet-b0' .. 'b7') or a
+    # maxvit.PARAMS one ('maxvit-base')
     backbone: str = "efficientnet-b3"
     backbone_remat: str = "none"  # 'none' | 'conv' | 'block'
-    # (models/efficientnet.py, EfficientNet.remat)
+    # (models/efficientnet.py EfficientNet.remat, models/maxvit.py MaxViT)
     fold_bn_eval: bool = False  # final test pass on the BN-folded net
     device_cache: bool = False  # stage the split's crops on the card once
     augment_fast: bool = False  # fusion_train_fast: the warp kernel

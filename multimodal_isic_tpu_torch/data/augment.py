@@ -503,10 +503,18 @@ def make_fusion_train_fast(out_hw: Tuple[int, int] = (380, 380)
     return batched
 
 
+def fusion_policies(out_hw: Tuple[int, int]) -> Dict[str, Callable]:
+    """The fusion CLI's three policies at the image size ``out_hw`` (the
+    backbone's: 380² for EfficientNet, a MaxViT preset's own)."""
+    return {"fusion_train": functools.partial(fusion_train_batch,
+                                              out_hw=out_hw),
+            "fusion_eval": functools.partial(fusion_eval_batch,
+                                             out_hw=out_hw),
+            "fusion_train_fast": make_fusion_train_fast(out_hw)}
+
+
 POLICIES = {
-    "fusion_train": fusion_train_batch,
-    "fusion_eval": fusion_eval_batch,
+    **fusion_policies((380, 380)),
     "mae_train": mae_train_batch,
     "mae_eval": mae_eval_batch,
-    "fusion_train_fast": make_fusion_train_fast(),
 }

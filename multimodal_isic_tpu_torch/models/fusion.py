@@ -13,6 +13,12 @@ The backbone computes in ``dtype`` on float32 master parameters (the
 BN-folded serving backbone, inference-only, stores its parameters in
 ``dtype``); the branch MLPs and fusion heads stay float32.
 
+The image branch is an EfficientNet (``efficientnet.PARAMS``) or a MaxViT
+(``maxvit.PARAMS``, no JAX counterpart) by the ``backbone`` name;
+``image_proj`` takes that backbone's feature width.  The BN-folded serving
+path (``backbone_bn_folded``, ``backbone_pallas_serving``,
+:func:`fold_fusion_params`) is EfficientNet's and refuses a MaxViT.
+
 In train mode the dropouts of the JAX module are active: ``ProjMlp`` after
 each ReLU (``models/fusion.py:39,43``, rates per branch as there) and 0.4
 after ``fusion_fc1`` (:166), plus the backbone's drop-connect and feature
@@ -29,10 +35,26 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils import trace
+from . import maxvit
 from .efficientnet import EfficientNet, dropout, feature_dim, fold_batchnorm
 
 SHARED_DIM = 128
 LN_EPS = 1e-6  # flax nn.LayerNorm default
+
+
+def is_maxvit(backbone: str) -> bool:
+    return backbone in maxvit.PARAMS
+
+
+def _no_serving_path(backbone: str) -> ValueError:
+    return ValueError(f"{backbone} has no BN-folded serving path: "
+                      "backbone_bn_folded, backbone_pallas_serving and "
+                      "fold_fusion_params take an EfficientNet")
+
+
+def backbone_feature_dim(backbone: str) -> int:
+    return (maxvit.feature_dim(backbone) if is_maxvit(backbone)
+            else feature_dim(backbone))
 
 
 class ProjMlp(nn.Module):
@@ -97,7 +119,7 @@ class MultiModalFusionNet(nn.Module):
                  backbone_bn_folded: bool = False,
                  backbone_pallas_serving: bool = False,
                  backbone_remat: str = "none"):
-        """``backbone_remat``: ``EfficientNet.remat``."""
+        """``backbone_remat``: ``EfficientNet.remat`` or ``MaxViT.remat``."""
         super().__init__()
         if fusion_level not in ("intermediate", "late"):
             raise ValueError(fusion_level)
@@ -110,13 +132,20 @@ class MultiModalFusionNet(nn.Module):
         m = len(self.modality)
 
         if "image" in self.modality:
-            self.image_model = EfficientNet(
-                backbone, dtype=dtype, bn_folded=backbone_bn_folded,
-                pallas_serving=backbone_pallas_serving, remat=backbone_remat)
+            if is_maxvit(backbone):
+                if backbone_bn_folded or backbone_pallas_serving:
+                    raise _no_serving_path(backbone)
+                self.image_model = maxvit.MaxViT(backbone, dtype=dtype,
+                                                 remat=backbone_remat)
+            else:
+                self.image_model = EfficientNet(
+                    backbone, dtype=dtype, bn_folded=backbone_bn_folded,
+                    pallas_serving=backbone_pallas_serving,
+                    remat=backbone_remat)
             if backbone_bn_folded:  # inference-only: no master copy needed
                 self.image_model.to(dtype)
-            self.image_proj = ProjMlp(feature_dim(backbone), 256, SHARED_DIM,
-                                      0.3, 0.2)
+            self.image_proj = ProjMlp(backbone_feature_dim(backbone), 256,
+                                      SHARED_DIM, 0.3, 0.2)
         if "radiomics" in self.modality:
             self.radiomics_mlp = ProjMlp(radiomics_dim, 256, SHARED_DIM,
                                          0.4, 0.3)
@@ -195,7 +224,10 @@ def fold_fusion_params(state_dict: Dict[str, torch.Tensor],
     """Serving-time transform for the whole fusion net: fold the image
     backbone's BN into its conv weights.  Returns the state dict for
     ``MultiModalFusionNet(backbone_bn_folded=True)``; branch MLPs and heads
-    (LayerNorm, no BN) pass through."""
+    (LayerNorm, no BN) pass through.  A MaxViT backbone raises
+    ``ValueError``: it has no BN-folded net."""
+    if is_maxvit(backbone):
+        raise _no_serving_path(backbone)
     out = {k: v for k, v in state_dict.items()
            if not k.startswith("image_model.")}
     if any(k.startswith("image_model.") for k in state_dict):

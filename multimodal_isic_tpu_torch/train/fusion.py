@@ -50,6 +50,7 @@ from ..core import metrics as M
 from ..data import augment as _aug
 from ..models.efficientnet import BatchNorm
 from ..models.fusion import MultiModalFusionNet
+from ..models.maxvit import RelPosAttention
 from ..parallel.distributed import process_count
 from ..parallel.sharding import shard_generator
 from ..utils import trace
@@ -91,7 +92,8 @@ def init_fusion(model: nn.Module, generator: torch.Generator) -> nn.Module:
     σ = 1/sqrt(fan_in)/0.8796; fan_in of a depthwise kernel is K·K), zero
     biases, LayerNorm and BatchNorm scale 1 and bias 0, running mean 0 and
     variance 1, ``Embed`` normal with std 1/sqrt(features), and the
-    weighted-fusion vector 1/M."""
+    weighted-fusion vector 1/M.  A MaxViT's relative-position tables (no
+    JAX counterpart) are normal with std 0.02 truncated to ±2σ."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
             std = 1.0 / math.sqrt(mod.weight[0].numel()) / _TRUNC
@@ -108,6 +110,9 @@ def init_fusion(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, nn.Embedding):
             nn.init.normal_(mod.weight, 0.0, 1.0 / math.sqrt(mod.weight.shape[1]),
                             generator=generator)
+        elif isinstance(mod, RelPosAttention):
+            nn.init.trunc_normal_(mod.rel_bias, 0.0, 0.02, -0.04, 0.04,
+                                  generator=generator)
     weights = getattr(model, "weights", None)
     if isinstance(weights, nn.Parameter):
         weights.fill_(1.0 / weights.numel())

@@ -4,7 +4,6 @@
 small sizes), ``parse_config``'s device rule, the backbone's remat and
 ``entry()``."""
 
-import functools
 import json
 import os
 
@@ -161,12 +160,7 @@ def test_jax_checkpoint_evaluated_by_the_port(workspace):
 
 
 def _small_policies(monkeypatch):
-    monkeypatch.setitem(taug.POLICIES, "fusion_train", functools.partial(
-        taug.fusion_train_batch, out_hw=SMALL_HW))
-    monkeypatch.setitem(taug.POLICIES, "fusion_train_fast",
-                        taug.make_fusion_train_fast(SMALL_HW))
-    monkeypatch.setitem(taug.POLICIES, "fusion_eval", functools.partial(
-        taug.fusion_eval_batch, out_hw=SMALL_HW))
+    # the CLI takes its policies from augment.fusion_policies at this size
     monkeypatch.setattr(tmain, "FUSED_EVAL_HW", SMALL_HW)
 
 
@@ -223,7 +217,47 @@ def test_port_cli_end_to_end(name, workspace, monkeypatch):
     with_image = "image" in p["modality"]
     loader = tpipe.DeviceLoader(
         tpipe.DermRecords(df_test, with_image=with_image), tmain.GLOBAL_BS,
-        transform=taug.POLICIES["fusion_eval"] if with_image else None,
+        transform=(taug.fusion_policies(SMALL_HW)["fusion_eval"]
+                   if with_image else None),
+        device="cpu")
+    step = ttr.make_fusion_eval_step(model)
+    logits = torch.cat([step(b)[1] for b in loader])
+    assert torch.equal(logits, result["logits"])
+
+
+def test_port_cli_maxvit_one_epoch(workspace, monkeypatch):
+    """``main`` with a MaxViT backbone (a tiny preset at 64²: widths 32
+    and 64, window 4): the policies and the device-resident validation at
+    the preset's own size, not EfficientNet's, one epoch, the checkpoint
+    saved, and the test pass on the unfolded net although ``fold_bn_eval``
+    asks for the folded one (MaxViT has none); a fresh net restored from
+    the checkpoint gives the run's test logits bit for bit."""
+    from multimodal_isic_tpu_torch.models import maxvit
+    root, config = workspace
+    monkeypatch.setitem(maxvit.PARAMS, "maxvit-tiny-test", maxvit.Preset(
+        image_size=64, stem=16, widths=(32, 64), depths=(1, 1), window=4,
+        head_dim=16))
+    assert tmain.image_hw("maxvit-tiny-test") == SMALL_HW
+    cfg = _variant(root, config, "maxvit", modality=["image", "clinical"],
+                   backbone="maxvit-tiny-test", device_cache=True,
+                   augment_fast=True, fold_bn_eval=True, epochs=1)
+    path = _write(root, "maxvit", cfg)
+    tprep.main(["--config_path", path])
+    result = tmain.main(["--config_path", path])
+    events = read_metrics(result["run_dir"])
+    for key in ("train/epoch_loss", "val/epoch_loss"):
+        values = [e["value"] for e in events if e["name"] == key]
+        assert len(values) == 1 and np.isfinite(values[0]), key
+    import pandas as pd
+    model = tfu.MultiModalFusionNet(modality=["image", "clinical"],
+                                    fusion_strategy="concat",
+                                    radiomics_dim=tpipe.RADIOMICS_PLACEHOLDER_DIM,
+                                    backbone="maxvit-tiny-test")
+    model.load_state_dict(tck.restore_checkpoint(result["model_path"]))
+    loader = tpipe.DeviceLoader(
+        tpipe.DermRecords(pd.read_pickle(cfg["dir"]["df_test"])),
+        tmain.GLOBAL_BS,
+        transform=taug.fusion_policies(SMALL_HW)["fusion_eval"],
         device="cpu")
     step = ttr.make_fusion_eval_step(model)
     logits = torch.cat([step(b)[1] for b in loader])
